@@ -1,0 +1,20 @@
+"""hackathonopticalflow_tpu_torch — the PyTorch/CUDA port of
+hackathonopticalflow_tpu for one NVIDIA Hopper GPU.
+
+The JAX package beside it is the reference: every module here mirrors the
+JAX module of the same path and is held against it by the tests
+(tests/test_torch_*.py). This package imports torch and never jax.
+
+Subpackages
+-----------
+core      configs and the measurement grid (the JAX package's fields and
+          defaults, held equal by tests/test_torch_core.py)
+ops       frame preparation, grid templates, the LK level (CUDA kernel
+          `lk_level` beside its plain PyTorch version), pyramidal LK, stats
+nav       radial normalization and the robust mask
+flow      grid LK flow over a frame pair or a clip (the pathfinder's loop)
+kernels   nvcc build + ctypes loader for csrc/*.cu
+convert   JAX-package state (numpy-convertible) -> this package's tensors
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,160 @@
+"""Grid-point LK flow with radial normalization and robust filtering: the
+reference's `get_flow_lk` loop (pathfinder_viewer.py:144-193). Port of
+hackathonopticalflow_tpu/flow/lk_grid.py.
+
+1. backward pyramidal LK: flow measured current -> previous frame;
+2. magnitude/angle; radial normalization m / (5 + sqrt(dist)) * 30;
+3. reconstructed endpoints, reference rounding int32(x + 0.5);
+4. robust mask median*1.0 < m < P99.
+All points are returned with a good/bad mask (no ragged compaction).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import FilterParams, LKParams, NormalizeParams
+from ..nav.filter import robust_mask
+from ..nav.normalize import radial_normalize
+from ..ops.lk import prepare_frame, pyr_lk, pyr_lk_prepared
+
+
+class GridFlowResult(NamedTuple):
+    raw_next_pts: torch.Tensor  # (N, 2) float32 — LK output before normalize
+    flow: torch.Tensor  # (N, 2) int32 — normalized rounded endpoint - point
+    next_pts: torch.Tensor  # (N, 2) int32 — normalized rounded endpoints
+    pts: torch.Tensor  # (N, 2) int32 — rounded measurement points
+    modulus: torch.Tensor  # (N,) float32 — normalized magnitudes
+    ang: torch.Tensor  # (N,) float32 — flow angles
+    good: torch.Tensor  # (N,) bool — passed the robust filter
+    status: torch.Tensor  # (N,) bool — LK track status
+
+
+def _round_ref(x: torch.Tensor) -> torch.Tensor:
+    """np.int32(x + 0.5) parity: add 0.5 then truncate toward zero."""
+    return torch.trunc(x + 0.5).to(torch.int32)
+
+
+def pack_grid_result(res: GridFlowResult) -> torch.Tensor:
+    """Flatten a batched (T-step) GridFlowResult into one (T, 10*N)
+    float32 tensor, so a consumer copies ONE buffer to the host per chunk.
+    `pts` is left out: it is the constant grid the caller holds. int32
+    fields round-trip through f32, exact for |v| < 2^24."""
+    t = res.modulus.shape[0]
+    f32 = torch.float32
+    return torch.cat(
+        [
+            res.raw_next_pts.reshape(t, -1),
+            res.flow.to(f32).reshape(t, -1),
+            res.next_pts.to(f32).reshape(t, -1),
+            res.modulus,
+            res.ang,
+            res.good.to(f32),
+            res.status.to(f32),
+        ],
+        dim=1,
+    )
+
+
+def unpack_grid_result(packed: np.ndarray, pts_i: np.ndarray) -> GridFlowResult:
+    """Host-side inverse of pack_grid_result: `packed` is the (T, 10*N)
+    array on the host, `pts_i` the (N, 2) int32 rounded grid. Fields are
+    numpy arrays."""
+    t = packed.shape[0]
+    n = pts_i.shape[0]
+    o = [0, 2 * n, 4 * n, 6 * n, 7 * n, 8 * n, 9 * n, 10 * n]
+    return GridFlowResult(
+        raw_next_pts=packed[:, o[0] : o[1]].reshape(t, n, 2),
+        flow=packed[:, o[1] : o[2]].reshape(t, n, 2).astype(np.int32),
+        next_pts=packed[:, o[2] : o[3]].reshape(t, n, 2).astype(np.int32),
+        pts=np.ascontiguousarray(np.broadcast_to(pts_i, (t, n, 2))),
+        modulus=packed[:, o[3] : o[4]],
+        ang=packed[:, o[4] : o[5]],
+        good=packed[:, o[5] : o[6]] != 0.0,
+        status=packed[:, o[6] : o[7]] != 0.0,
+    )
+
+
+def _post_lk(
+    res,
+    pts: torch.Tensor,
+    h: int,
+    w: int,
+    norm: NormalizeParams,
+    filt: FilterParams,
+) -> GridFlowResult:
+    """Radial normalization + robust filtering + reference rounding
+    (pathfinder_viewer.py:159-176) applied to an LK result."""
+    half_w = int(w / 2)
+    half_h = int(h / 2)
+    flow_raw = res.next_pts - pts
+    fx, fy = flow_raw[:, 0], flow_raw[:, 1]
+    x, y = pts[:, 0], pts[:, 1]
+    ang = torch.atan2(fy, fx)
+    modulus = torch.sqrt(fx * fx + fy * fy)
+    modulus = radial_normalize(modulus, x, y, half_w, half_h, norm)
+    nfx = modulus * torch.cos(ang)
+    nfy = modulus * torch.sin(ang)
+    next_pts = _round_ref(torch.stack([x + nfx, y + nfy], dim=-1))
+    pts_i = _round_ref(pts)
+    good = robust_mask(modulus, filt)
+    return GridFlowResult(
+        raw_next_pts=res.next_pts,
+        flow=next_pts - pts_i,
+        next_pts=next_pts,
+        pts=pts_i,
+        modulus=modulus,
+        ang=ang,
+        good=good,
+        status=res.status,
+    )
+
+
+def lk_grid_flow(
+    prev_gray: torch.Tensor,
+    gray: torch.Tensor,
+    pts: torch.Tensor,
+    lk: LKParams = LKParams(),
+    norm: NormalizeParams = NormalizeParams(),
+    filt: FilterParams = FilterParams(),
+) -> GridFlowResult:
+    """prev_gray/gray: (H, W) grayscale in [0, 255] (uint8 welcome: the
+    cast happens on the tensors' device); pts: (N, 2) on the same device."""
+    prev_gray = prev_gray.to(torch.float32)
+    gray = gray.to(torch.float32)
+    pts = pts.to(torch.float32)
+    h, w = gray.shape
+    # backward flow: track grid points from the current frame into the
+    # previous one
+    res = pyr_lk(gray, prev_gray, pts, lk)
+    return _post_lk(res, pts, h, w, norm, filt)
+
+
+def lk_grid_flow_video(
+    frames: torch.Tensor,
+    pts: torch.Tensor,
+    lk: LKParams = LKParams(),
+    norm: NormalizeParams = NormalizeParams(),
+    filt: FilterParams = FilterParams(),
+    device: torch.device | str | None = None,
+) -> GridFlowResult:
+    """Whole-clip form: (T, H, W) uint8 frames -> GridFlowResult batched
+    over the T-1 steps. Frames move to `device` as uint8 (default: where
+    they are) and are cast there; each frame's prepared pyramid is built
+    once and carried to the next step as the previous frame."""
+    device = frames.device if device is None else torch.device(device)
+    frames = frames.to(device)
+    pts = pts.to(device=device, dtype=torch.float32)
+    h, w = frames.shape[-2:]
+    prev_prep = prepare_frame(frames[0], lk)
+    steps = []
+    for t in range(1, frames.shape[0]):
+        cur_prep = prepare_frame(frames[t], lk)
+        # viewer semantics: the current frame is the LK template source
+        res = pyr_lk_prepared(cur_prep, prev_prep, pts, lk)
+        steps.append(_post_lk(res, pts, h, w, norm, filt))
+        prev_prep = cur_prep
+    return GridFlowResult(*(torch.stack(f) for f in zip(*steps)))

@@ -1,0 +1,208 @@
+"""Pyramidal grid Lucas-Kanade (port of hackathonopticalflow_tpu/ops/lk.py,
+the static-grid production configuration).
+
+The slice ported here is the sparse pathfinder's: params.grid_step set,
+the lanes grid kernel, init-centred crops at every level below the top
+(rescue_large=True, rescue_levels=None), compute_err=False. At the top
+level each point's crop is anchored at its grid position with margin
+iter_margin_top; below it, at the point's clipped coarse estimate with
+margin rescue_margin. Every level runs `ops/lk_level.py::lk_level`.
+Other configurations raise NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import LKParams, measurement_grid
+from .deriv import scharr_deriv
+from .image import reflect101_pad
+from .lk_level import lk_level
+from .patch import extract_grid_templates
+from .pyramid import build_pyramid
+
+
+class LKResult(NamedTuple):
+    next_pts: torch.Tensor  # (N, 2) float32
+    status: torch.Tensor  # (N,) bool — False where tracking failed at level 0
+    err: torch.Tensor  # (N,) float32 — zeros (compute_err is not ported)
+
+
+class PreparedFrame(NamedTuple):
+    """Per-frame quantized pyramid levels and Scharr derivatives, padded
+    for window sampling; built once per frame of a clip."""
+
+    img_p: tuple  # per level: (H+2p, W+2p) reflect-101 padded image
+    dix_p: tuple  # per level: zero-padded d/dx
+    diy_p: tuple  # per level: zero-padded d/dy
+
+
+def _frame_pad(params: LKParams) -> int:
+    """Window-sampling border pad of the production grid path (the JAX
+    package's value for it)."""
+    win_w, win_h = params.win_size
+    half = (max(win_w, win_h) - 1) // 2
+    m = max(params.slab_margin_x, params.slab_margin_y, params.iter_margin_top)
+    return max(
+        max(win_w, win_h) + 2,
+        half + m + 2,
+        _init_centered_pad(win_w, win_h, params.rescue_margin),
+    )
+
+
+def _init_centered_pad(win_w: int, win_h: int, margin: int) -> int:
+    """Border pad of the init-centred crop: the clipped init reaches
+    win + 2 beyond the frame and the crop margin past it. Includes the JAX
+    package's 8-aligned x slack so both pad identically."""
+    crop_x = win_w + 1 + 2 * margin
+    slack = (-crop_x) % 8
+    return max(win_w + margin + 3 + slack, win_h + margin + 3)
+
+
+def _check_slice(params: LKParams) -> None:
+    """Raise for configurations outside the ported slice."""
+    todo = "is not ported yet: ROADMAP.md, queue 1, item"
+    if params.compute_err:
+        raise NotImplementedError(f"compute_err=True {todo} 1")
+    if params.grid_step is None:
+        raise NotImplementedError(f"grid_step=None (the exact _level_lk path) {todo} 2")
+    if params.grid_kernel != "lanes":
+        raise NotImplementedError(f"grid_kernel={params.grid_kernel!r} {todo} 2")
+    if not params.rescue_large or params.rescue_levels is not None:
+        raise NotImplementedError(
+            f"rescue_large=False / an integer rescue_levels {todo} 3"
+        )
+    if params.points_lanes:
+        raise NotImplementedError(f"points_lanes (the tracker's path) {todo} 6")
+
+
+def prepare_frame(img: torch.Tensor, params: LKParams) -> PreparedFrame:
+    """img: (H, W) grayscale in [0, 255] (any dtype; cast to float32)."""
+    _check_slice(params)
+    pad = _frame_pad(params)
+    pyr = build_pyramid(img.to(torch.float32), params.max_level)
+    imgs, dxs, dys = [], [], []
+    for lv in pyr:
+        dx, dy = scharr_deriv(lv)
+        imgs.append(reflect101_pad(lv, pad).contiguous())
+        dxs.append(torch.nn.functional.pad(dx, (pad, pad, pad, pad)))
+        dys.append(torch.nn.functional.pad(dy, (pad, pad, pad, pad)))
+    return PreparedFrame(img_p=tuple(imgs), dix_p=tuple(dxs), diy_p=tuple(dys))
+
+
+def _halfwin(params: LKParams, device) -> torch.Tensor:
+    win_w, win_h = params.win_size
+    return torch.tensor(
+        [(win_w - 1) * 0.5, (win_h - 1) * 0.5], dtype=torch.float32, device=device
+    )
+
+
+def level_inputs(
+    prev_prep: PreparedFrame,
+    next_prep: PreparedFrame,
+    grid_xy: tuple,
+    next_center: torch.Tensor,
+    level: int,
+    params: LKParams,
+) -> tuple[tuple, dict]:
+    """The arguments of `lk_level` (all but status0) for one level of the
+    production grid path: templates at the grid points of `prev_prep`,
+    search in `next_prep` from `next_center`. Returns
+    ((tmpl, plane_p, pad, tl0, crop_org), statics)."""
+    xs, ys = grid_xy
+    win_w, win_h = params.win_size
+    pad = _frame_pad(params)
+    img_prev_p = prev_prep.img_p[level]
+    h = img_prev_p.shape[0] - 2 * pad
+    w = img_prev_p.shape[1] - 2 * pad
+    planes = torch.stack([img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]])
+    tmpl = extract_grid_templates(planes, xs, ys, level, win_w, win_h, pad)
+
+    tl0 = next_center - _halfwin(params, next_center.device)
+    if level == params.max_level:
+        # the top-level init is the grid anchor: the crop is anchored there
+        m = params.iter_margin_top
+    else:
+        # init-centred crop; wild inits are clipped just enough to keep
+        # the crop inside the padded plane (they stay beyond the oob gate)
+        m = params.rescue_margin
+        tl0 = torch.stack(
+            [
+                torch.clamp(tl0[:, 0], -(win_w + 2.0), w + 2.0),
+                torch.clamp(tl0[:, 1], -(win_h + 2.0), h + 2.0),
+            ],
+            dim=-1,
+        )
+    crop_org = torch.floor(tl0).to(torch.int32) - m
+    statics = dict(
+        m=m, win_w=win_w, win_h=win_h, level_w=w, level_h=h,
+        max_iters=params.max_iters, eps2=float(max(params.eps, 0.0) ** 2),
+        is_level0=(level == 0), min_eig_threshold=params.min_eig_threshold,
+    )
+    return (tmpl, next_prep.img_p[level], pad, tl0.contiguous(), crop_org), statics
+
+
+def _level_lk_static_grid(
+    prev_prep: PreparedFrame,
+    next_prep: PreparedFrame,
+    grid_xy: tuple,
+    next_center: torch.Tensor,
+    status: torch.Tensor,
+    level: int,
+    params: LKParams,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One level of the production grid path. Returns (next_center,
+    status)."""
+    args, statics = level_inputs(
+        prev_prep, next_prep, grid_xy, next_center, level, params
+    )
+    next_tl, status = lk_level(*args, status, **statics)
+    return next_tl + _halfwin(params, next_tl.device), status
+
+
+def pyr_lk(
+    img_prev: torch.Tensor,
+    img_next: torch.Tensor,
+    pts: torch.Tensor,
+    params: LKParams = LKParams(),
+) -> LKResult:
+    """Track pts (N, 2) [x, y] from img_prev to img_next ((H, W) grayscale
+    in [0, 255]). pts must be measurement_grid(H, W, params.grid_step)."""
+    prep_prev = prepare_frame(img_prev, params)
+    prep_next = prepare_frame(img_next, params)
+    return pyr_lk_prepared(prep_prev, prep_next, pts, params)
+
+
+def pyr_lk_prepared(
+    prep_prev: PreparedFrame,
+    prep_next: PreparedFrame,
+    pts: torch.Tensor,
+    params: LKParams = LKParams(),
+) -> LKResult:
+    """pyr_lk over frames prepared with prepare_frame (the video form)."""
+    _check_slice(params)
+    pad = _frame_pad(params)
+    h = prep_prev.img_p[0].shape[0] - 2 * pad
+    w = prep_prev.img_p[0].shape[1] - 2 * pad
+    gpts = measurement_grid(h, w, params.grid_step)
+    if gpts.shape[0] != pts.shape[0]:
+        raise ValueError(
+            f"pts must be measurement_grid({h}, {w}, {params.grid_step}): "
+            f"expected {gpts.shape[0]} points, got {pts.shape[0]}"
+        )
+    grid_xy = (np.unique(gpts[:, 0]).astype(int), np.unique(gpts[:, 1]).astype(int))
+
+    pts = pts.to(torch.float32)
+    status = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    next_center = pts * (1.0 / (1 << params.max_level))
+    for level in range(params.max_level, -1, -1):
+        if level != params.max_level:
+            next_center = next_center * 2.0
+        next_center, status = _level_lk_static_grid(
+            prep_prev, prep_next, grid_xy, next_center, status, level, params
+        )
+    err = torch.zeros(pts.shape[0], dtype=torch.float32, device=pts.device)
+    return LKResult(next_pts=next_center, status=status, err=err)

@@ -1,0 +1,52 @@
+"""Template windows at the static measurement grid (port of what
+hackathonopticalflow_tpu/ops/grid_patch.py::extract_grid_templates_lanes
+computes; the JAX package builds it in XLA, not Pallas).
+
+The TPU layouts (128-lane padding, points on lanes, i16 x32 storage) are
+dropped: the result is (N, 3, win_h, win_w) float32 in the grid's x-major
+point order, on the 1/32 W_BITS grid that the i16 stream encodes."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _axis_bases(coords: np.ndarray, level: int, off: float):
+    """Per-coordinate integer window origins + float32 fractional offsets
+    (float64 on the host, as the JAX extractor computes them)."""
+    pos = np.asarray(coords, np.float64) / (1 << level) - off
+    base = np.floor(pos).astype(np.int64)
+    return base, (pos - base).astype(np.float32)
+
+
+def extract_grid_templates(
+    planes: torch.Tensor,
+    xs: np.ndarray,
+    ys: np.ndarray,
+    level: int,
+    win_w: int,
+    win_h: int,
+    pad: int,
+) -> torch.Tensor:
+    """planes: (3, Hp, Wp) padded level planes (image, d/dx, d/dy).
+    xs, ys: the grid's full-resolution axis coordinates.
+
+    Per point, the window at pts / 2^level - halfwin: rows are blended in
+    y first, then columns in x, then quantized to floor(v*32 + 0.5)/32.
+    Returns (Kx*Ky, 3, win_h, win_w), point k = ix*Ky + iy."""
+    dev = planes.device
+    by, fy = _axis_bases(ys, level, (win_h - 1) * 0.5)
+    bx, fx = _axis_bases(xs, level, (win_w - 1) * 0.5)
+    ry = torch.as_tensor(by + pad, device=dev)[:, None] + torch.arange(win_h + 1, device=dev)
+    rows = planes[:, ry, :]  # (3, Ky, win_h+1, Wp)
+    fyv = torch.as_tensor(fy, device=dev).reshape(1, -1, 1, 1)
+    rows = rows[:, :, :win_h, :] * (1 - fyv) + rows[:, :, 1:, :] * fyv
+    cx = torch.as_tensor(bx + pad, device=dev)[:, None] + torch.arange(win_w + 1, device=dev)
+    cols = rows[..., cx]  # (3, Ky, win_h, Kx, win_w+1)
+    fxv = torch.as_tensor(fx, device=dev).reshape(1, 1, 1, -1, 1)
+    wnd = cols[..., :win_w] * (1 - fxv) + cols[..., 1:] * fxv
+    wnd = torch.floor(wnd * 32.0 + 0.5) * (1.0 / 32.0)
+    # (3, Ky, win_h, Kx, win_w) -> (Kx, Ky, 3, win_h, win_w), x-major
+    out = wnd.permute(3, 1, 0, 2, 4)
+    return out.reshape(-1, 3, win_h, win_w).contiguous()

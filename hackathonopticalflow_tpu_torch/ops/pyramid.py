@@ -1,0 +1,26 @@
+"""u8-quantized pyrDown pyramid (port of
+hackathonopticalflow_tpu/ops/pyramid.py)."""
+
+from __future__ import annotations
+
+import torch
+
+from .image import sep_conv2d
+
+_PYR_K = [1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0]
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrDown with OpenCV's uint8 level storage: 5-tap smoothing,
+    every other pixel (ceil-halved size), floor(x + 0.5) clipped to
+    [0, 255]. Float dtype is kept."""
+    out = sep_conv2d(img, _PYR_K, _PYR_K)[..., ::2, ::2]
+    return torch.clamp(torch.floor(out + 0.5), 0.0, 255.0)
+
+
+def build_pyramid(img: torch.Tensor, max_level: int) -> list[torch.Tensor]:
+    """Levels [0..max_level]; level 0 is the input image."""
+    levels = [img]
+    for _ in range(max_level):
+        levels.append(pyr_down(levels[-1]))
+    return levels

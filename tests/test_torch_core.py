@@ -1,0 +1,48 @@
+"""The port's configs and measurement grid equal the JAX package's, field by
+field, so the two copies of the constants cannot drift apart."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from hackathonopticalflow_tpu import core as jcore
+from hackathonopticalflow_tpu_torch import core as tcore
+
+
+# LKParams fields that only pick a TPU implementation of the ported
+# computation, or serve paths the port does not have
+JAX_ONLY = {
+    "LKParams": {"use_pallas", "pallas_block", "early_exit", "lanes_packed",
+                 "carve_dma", "slab_margin", "iter_margin"},
+    "NormalizeParams": set(),
+    "FilterParams": set(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_ONLY))
+def test_params_match_jax(name):
+    jcls, tcls = getattr(jcore, name), getattr(tcore, name)
+    jf = [(f.name, f.type, f.default) for f in dataclasses.fields(jcls)
+          if f.name not in JAX_ONLY[name]]
+    tf = [(f.name, f.type, f.default) for f in dataclasses.fields(tcls)]
+    assert tf == jf
+    assert {f.name for f in dataclasses.fields(jcls)} - {f[0] for f in tf} == JAX_ONLY[name]
+    assert tcls.__dataclass_params__.frozen
+
+
+def test_production_lk_params_match_jax():
+    t = tcore.LKParams(grid_step=30, compute_err=False)
+    j = jcore.LKParams(grid_step=30, use_pallas=True, compute_err=False)
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+
+
+@pytest.mark.parametrize(
+    "h,w,step", [(1080, 1920, 30), (270, 480, 30), (271, 479, 30), (720, 1280, 30), (97, 131, 16)]
+)
+def test_measurement_grid_matches_jax(h, w, step):
+    got = tcore.measurement_grid(h, w, step)
+    want = jcore.measurement_grid(h, w, step)
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got, want)

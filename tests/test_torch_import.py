@@ -1,0 +1,48 @@
+"""The port imports without jax and without the JAX package, and its kernel
+wrapper takes the plain path on CPU tensors."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+BLOCKED = ("jax", "hackathonopticalflow_tpu")
+def blocked_mods():
+    return {k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED}
+before = blocked_mods()
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import torch
+import hackathonopticalflow_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+
+g = torch.Generator().manual_seed(0)
+n, win, m = 3, 5, 2
+tmpl = torch.floor(torch.rand((n, 3, win, win), generator=g) * 32 * 50) / 32
+plane = torch.floor(torch.rand((30, 30), generator=g) * 255)
+kw = dict(m=m, win_w=win, win_h=win, level_w=20, level_h=20, max_iters=4,
+          eps2=9e-4, is_level0=True, min_eig_threshold=1e-4)
+tl0 = torch.full((n, 2), 7.25)
+org = torch.floor(tl0).to(torch.int32) - m
+st = torch.ones(n, dtype=torch.bool)
+out = lk_level(tmpl, plane, 5, tl0, org, st, **kw)
+ref = lk_level_reference(tmpl, plane, 5, tl0, org, st, **kw)
+assert lk_level.launches == 0
+assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+assert blocked_mods() <= before
+print("OK")
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
