@@ -10,9 +10,12 @@ Subpackages
 core      configs and the measurement grid (the JAX package's fields and
           defaults, held equal by tests/test_torch_core.py)
 ops       frame preparation, grid templates, the LK level (CUDA kernel
-          `lk_level` beside its plain PyTorch version), pyramidal LK, stats
-nav       radial normalization and the robust mask
-flow      grid LK flow over a frame pair or a clip (the pathfinder's loop)
+          `lk_level` beside its plain PyTorch version), pyramidal LK, stats;
+          dense image primitives, the coefficient warp (CUDA kernel
+          `warp_bilinear` beside its plain version), Farneback
+nav       radial normalization (grid and dense) and the robust mask
+flow      grid LK flow over a frame pair or a clip (the pathfinder's loop);
+          dense Farneback flow over a pair or a clip
 kernels   nvcc build + ctypes loader for csrc/*.cu
 convert   JAX-package state (numpy-convertible) -> this package's tensors
 """

@@ -1,15 +1,20 @@
 """JAX-package state -> this package's tensors.
 
-The inputs are the JAX package's NamedTuples (PreparedFrame, LKResult) or
-anything with the same fields whose leaves numpy can read (np.asarray of
-a jax.Array copies it to the host); this module never imports jax. With
-it a test feeds both packages the same pyramid and isolates one level."""
+The inputs are the JAX package's NamedTuples (PreparedFrame, LKResult),
+tuples of arrays (a Farneback pyramid) or dataclasses (FarnebackParams),
+or anything with the same fields whose leaves numpy can read (np.asarray
+of a jax.Array copies it to the host); this module never imports jax.
+With it a test feeds both packages the same pyramid and isolates one
+level."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from .core import FarnebackParams
 from .ops.lk import LKResult, PreparedFrame
 
 
@@ -33,3 +38,15 @@ def lk_result(res, device="cpu") -> LKResult:
         status=_tensor(res.status, device),
         err=_tensor(res.err, device),
     )
+
+
+def farneback_pyramid(rs, device="cpu") -> tuple[torch.Tensor, ...]:
+    """A JAX Farneback prepare_frame() tuple of (5, Hk, Wk) arrays, coarse
+    -> fine, -> the port's tuple of tensors on `device`."""
+    return tuple(_tensor(r, device) for r in rs)
+
+
+def farneback_params(params) -> FarnebackParams:
+    """A JAX FarnebackParams -> the port's, field by field by name (the
+    port has no warp_group_rows)."""
+    return FarnebackParams(**{f.name: getattr(params, f.name) for f in dataclasses.fields(FarnebackParams)})

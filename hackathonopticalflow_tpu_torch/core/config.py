@@ -2,8 +2,9 @@
 
 Every field here has the JAX package's name, type and default;
 tests/test_torch_core.py holds them equal field by field. The constants
-come from the reference app: LK window/criteria pathfinder_viewer.py:154-158,
-radial normalization :164-166, filter thresholds :173, grid step :16.
+come from the reference apps: LK window/criteria pathfinder_viewer.py:154-158,
+radial normalization :164-166, filter thresholds :173, grid step :16;
+Farneback DenseOF.py:147-157.
 """
 
 from __future__ import annotations
@@ -67,3 +68,27 @@ class FilterParams:
 
     median_factor: float = 1.0
     upper_percentile: float | None = 99.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FarnebackParams:
+    """Farneback dense-flow parameters (cv2.calcOpticalFlowFarneback parity).
+
+    warp_mode selects how the second frame's polynomial coefficients are
+    displaced by the current flow each iteration. The port runs "exact"
+    (bilinear warp of the 5 coefficient channels, OpenCV semantics: the
+    `warp_bilinear` kernel on CUDA tensors, its plain version on CPU
+    tensors, with the doubling box sum); "auto" (the default) means
+    "exact" here. The JAX package's TPU speed modes ("packed", "pallas",
+    "pallas_bf16") and re-expansion modes ("image", "hybrid") raise
+    NotImplementedError naming their ROADMAP item. The JAX field
+    warp_group_rows (Pallas tile geometry) is left out."""
+
+    pyr_scale: float = 0.5
+    levels: int = 3
+    win_size: int = 15
+    iterations: int = 3
+    poly_n: int = 5
+    poly_sigma: float = 1.2
+    gaussian_win: bool = False  # flags=0 in the reference -> box filter
+    warp_mode: str = "auto"

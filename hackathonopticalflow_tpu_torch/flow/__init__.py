@@ -1,1 +1,2 @@
-"""Grid LK flow (port of hackathonopticalflow_tpu/flow/lk_grid.py)."""
+"""Grid LK flow and dense Farneback flow (ports of
+hackathonopticalflow_tpu/flow/lk_grid.py and flow/dense.py)."""

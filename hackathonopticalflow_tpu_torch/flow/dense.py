@@ -1,0 +1,41 @@
+"""Dense Farneback flow: the reference's `calculate_optical_flow`
+(DenseOF.py:127-157). Port of hackathonopticalflow_tpu/flow/dense.py."""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import FarnebackParams
+from ..ops.farneback import farneback, farneback_prepared, prepare_frame
+
+
+def farneback_flow_video(
+    frames: torch.Tensor,
+    params: FarnebackParams = FarnebackParams(),
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """(T, H, W) grayscale clip (uint8 welcome) -> (T-1, H, W, 2) float32
+    flow of each consecutive pair. Frames move to `device` as they are
+    (default: where they are) and are cast there; each frame's prepared
+    polynomial pyramid is built once and carried to the next pair, so the
+    result equals per-pair farneback() exactly."""
+    device = frames.device if device is None else torch.device(device)
+    frames = frames.to(device)
+    prev = prepare_frame(frames[0], params)
+    flows = []
+    for t in range(1, frames.shape[0]):
+        cur = prepare_frame(frames[t], params)
+        flows.append(farneback_prepared(prev, cur, params))
+        prev = cur
+    return torch.stack(flows)
+
+
+def farneback_flow(
+    prev_gray: torch.Tensor,
+    gray: torch.Tensor,
+    params: FarnebackParams = FarnebackParams(),
+) -> torch.Tensor:
+    """(..., H, W) grayscale pair -> (..., H, W, 2) dense flow. Leading
+    batch axes (pairs of several streams, say) run as one batch; each row
+    equals the single-pair result."""
+    return farneback(prev_gray, gray, params)

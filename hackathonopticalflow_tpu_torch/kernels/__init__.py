@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -24,7 +25,7 @@ NVCC_FLAGS = [
     "-std=c++17",
     "-O3",
     # no FMA contraction: kernels reproduce their plain versions' f32
-    # rounding bit for bit (csrc/lk_level.cu)
+    # rounding bit for bit (csrc/lk_level.cu, csrc/warp_bilinear.cu)
     "-fmad=false",
     "-Xptxas=-v",
     "-shared",
@@ -69,6 +70,13 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(names: list[str]) -> list[Path]:
+    """build() each of csrc/<name>.cu, one nvcc per source, all started
+    together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        return list(ex.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

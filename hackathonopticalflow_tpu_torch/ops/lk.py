@@ -66,17 +66,17 @@ def _check_slice(params: LKParams) -> None:
     """Raise for configurations outside the ported slice."""
     todo = "is not ported yet: ROADMAP.md, queue 1, item"
     if params.compute_err:
-        raise NotImplementedError(f"compute_err=True {todo} 1")
+        raise NotImplementedError(f"compute_err=True {todo} 2")
     if params.grid_step is None:
-        raise NotImplementedError(f"grid_step=None (the exact _level_lk path) {todo} 2")
+        raise NotImplementedError(f"grid_step=None (the exact _level_lk path) {todo} 3")
     if params.grid_kernel != "lanes":
-        raise NotImplementedError(f"grid_kernel={params.grid_kernel!r} {todo} 2")
+        raise NotImplementedError(f"grid_kernel={params.grid_kernel!r} {todo} 3")
     if not params.rescue_large or params.rescue_levels is not None:
         raise NotImplementedError(
-            f"rescue_large=False / an integer rescue_levels {todo} 3"
+            f"rescue_large=False / an integer rescue_levels {todo} 4"
         )
     if params.points_lanes:
-        raise NotImplementedError(f"points_lanes (the tracker's path) {todo} 6")
+        raise NotImplementedError(f"points_lanes (the tracker's path) {todo} 1")
 
 
 def prepare_frame(img: torch.Tensor, params: LKParams) -> PreparedFrame:

@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's sparse 1080p scan, on one CUDA GPU.
+"""Where the time goes in the port's 1080p sparse scan or 720p dense scan, on
+one CUDA GPU.
 
 Run from the repository root:
 
-    python3 profile_torch_scan.py [--pairs 8] [--out PATH]
+    python3 profile_torch_scan.py [--path sparse|dense] [--pairs 8] [--out PATH]
 
-Drives `lk_grid_flow_video` over `--pairs` pairs of chip_smoke.py's
-synthetic zoom clip at the production params and prints:
+Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip at the
+production params: `lk_grid_flow_video` (--path sparse, the default) or
+`farneback_flow_video` at the reference FarnebackParams (--path dense).
+It prints:
 - the GPU's name and power limit (nvidia-smi);
 - the scan's wall time without the profiler (best of 3) and the device
   time that torch.profiler records over one more scan, so the device's
   busy share is device time / wall time;
 - host API calls per pair (kernel launches, stream syncs, memcpys);
-- device time by kind of kernel (lk_level, index/gather, elementwise, ...);
-- stage times from CUDA events for one pair: prepare_frame, level_inputs
-  and lk_level per level, pyr_lk_prepared, _post_lk.
+- device time by kind of kernel (lk_level, warp_bilinear, index/gather,
+  elementwise, ...) and the top device ops;
+- stage times from CUDA events for one pair: sparse: prepare_frame,
+  level_inputs and lk_level per level, pyr_lk_prepared, _post_lk; dense:
+  prepare_frame, update_matrices and the solve per level,
+  farneback_prepared.
 The full profiler tables go to --out (default
-build/profile_torch_scan.txt); the last line is the summary as one JSON
-object.
+build/profile_torch_scan.txt, build/profile_torch_scan_dense.txt for the
+dense path); the last line is the summary as one JSON object.
 """
 
 from __future__ import annotations
@@ -34,14 +40,22 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import H, W, cuda_ms, make_clip
-from hackathonopticalflow_tpu_torch.core import FilterParams, LKParams, NormalizeParams, measurement_grid
-from hackathonopticalflow_tpu_torch.flow import lk_grid
+from chip_smoke import DENSE_CELL, DENSE_H, DENSE_W, H, W, cuda_ms, make_clip
+from hackathonopticalflow_tpu_torch.core import (
+    FarnebackParams,
+    FilterParams,
+    LKParams,
+    NormalizeParams,
+    measurement_grid,
+)
+from hackathonopticalflow_tpu_torch.flow import dense, lk_grid
+from hackathonopticalflow_tpu_torch.ops import farneback as fb
 from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
 
 KINDS = (
     ("lk_level", ("lk_level",)),
+    ("warp_bilinear", ("warp_bilinear",)),
     ("index/gather", ("index", "gather")),
     ("sort", ("sort",)),
     ("elementwise", ("elementwise", "reduce")),
@@ -57,11 +71,83 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def sparse_setup(dev, pairs: int):
+    """The sparse scan over `pairs` 1080p pairs and its stage timer."""
+    params = LKParams(grid_step=30, compute_err=False)
+    clip = make_clip(dev)[: pairs + 1]
+    pts = torch.from_numpy(measurement_grid(H, W, params.grid_step)).to(dev)
+
+    def scan():
+        return lk_grid.lk_grid_flow_video(clip, pts, lk=params)
+
+    def stages():
+        """One pair (backward: template from frame 1, search in 0)."""
+        grid_np = measurement_grid(H, W, params.grid_step)
+        grid_xy = (np.unique(grid_np[:, 0]).astype(int), np.unique(grid_np[:, 1]).astype(int))
+        cur = lk_mod.prepare_frame(clip[1], params)
+        prev = lk_mod.prepare_frame(clip[0], params)
+        out = {"prepare_frame": cuda_ms(lambda: lk_mod.prepare_frame(clip[1], params), 10)}
+        center = pts * (1.0 / (1 << params.max_level))
+        status = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+        for level in range(params.max_level, -1, -1):
+            if level != params.max_level:
+                center = center * 2.0
+            out[f"level_inputs L{level}"] = cuda_ms(
+                lambda: lk_mod.level_inputs(cur, prev, grid_xy, center, level, params), 10
+            )
+            lvl_args, statics = lk_mod.level_inputs(cur, prev, grid_xy, center, level, params)
+            out[f"lk_level L{level}"] = cuda_ms(lambda: lk_level(*lvl_args, status, **statics), 10)
+            tl, status = lk_level(*lvl_args, status, **statics)
+            center = tl + lk_mod._halfwin(params, dev)
+        res = lk_mod.pyr_lk_prepared(cur, prev, pts, params)
+        out["pyr_lk_prepared"] = cuda_ms(lambda: lk_mod.pyr_lk_prepared(cur, prev, pts, params), 10)
+        out["_post_lk"] = cuda_ms(
+            lambda: lk_grid._post_lk(res, pts, H, W, NormalizeParams(), FilterParams()), 10
+        )
+        return out
+
+    return scan, stages, "1080p"
+
+
+def dense_setup(dev, pairs: int):
+    """The dense scan over `pairs` 720p pairs and its stage timer."""
+    params = FarnebackParams()
+    clip = make_clip(dev, DENSE_H, DENSE_W, pairs + 1, DENSE_CELL)
+
+    def scan():
+        return dense.farneback_flow_video(clip, params)
+
+    def stages():
+        """One pair; each level at the flow the scan reaches there."""
+        rs0 = fb.prepare_frame(clip[0], params)
+        rs1 = fb.prepare_frame(clip[1], params)
+        out = {"prepare_frame": cuda_ms(lambda: fb.prepare_frame(clip[1], params), 10)}
+        flow = None
+        for r0, r1 in zip(rs0, rs1):
+            hk, wk = r0.shape[-2:]
+            if flow is None:
+                flow = torch.zeros((hk, wk, 2), dtype=torch.float32, device=dev)
+            else:
+                flow = fb.resize_bilinear(flow.movedim(-1, -3), hk, wk).movedim(-3, -1) * 2.0
+            m = fb.update_matrices(r0, r1, flow)
+            out[f"update_matrices {hk}x{wk}"] = cuda_ms(lambda: fb.update_matrices(r0, r1, flow), 10)
+            out[f"solve {hk}x{wk}"] = cuda_ms(lambda: fb._solve_flow(m, params), 10)
+            flow = fb._solve_flow(m, params)
+        out["farneback_prepared"] = cuda_ms(lambda: fb.farneback_prepared(rs0, rs1, params), 10)
+        return out
+
+    return scan, stages, "720p"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("sparse", "dense"), default="sparse")
     ap.add_argument("--pairs", type=int, default=8)
-    ap.add_argument("--out", type=Path, default=Path("build/profile_torch_scan.txt"))
+    ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
+    if args.out is None:
+        suffix = "" if args.path == "sparse" else "_dense"
+        args.out = Path(f"build/profile_torch_scan{suffix}.txt")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_scan: needs a CUDA GPU")
     smi = subprocess.run(
@@ -70,12 +156,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    params = LKParams(grid_step=30, compute_err=False)
-    clip = make_clip(dev)[: args.pairs + 1]
-    pts = torch.from_numpy(measurement_grid(H, W, params.grid_step)).to(dev)
-
-    def scan():
-        return lk_grid.lk_grid_flow_video(clip, pts, lk=params)
+    setup = sparse_setup if args.path == "sparse" else dense_setup
+    scan, stages_fn, size = setup(dev, args.pairs)
 
     scan()  # builds the kernel, warms the caching allocator
     walls = []
@@ -92,38 +174,17 @@ def main() -> int:
         torch.cuda.synchronize()
     events = prof.events()
     dev_us = collections.Counter()
+    op_us = collections.Counter()
     for e in events:
         if e.device_type == DeviceType.CUDA:
             dev_us[kind_of(e.name)] += e.time_range.elapsed_us()
+            op_us[e.name[:80]] += e.time_range.elapsed_us()
     api = collections.Counter(
         e.name for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cuda")
     )
     device_ms = sum(dev_us.values()) / 1e3
     launches = sum(n for name, n in api.items() if name.startswith("cudaLaunch"))
-
-    # stage times on one pair (backward: template from frame 1, search in 0)
-    grid_np = measurement_grid(H, W, params.grid_step)
-    grid_xy = (np.unique(grid_np[:, 0]).astype(int), np.unique(grid_np[:, 1]).astype(int))
-    cur = lk_mod.prepare_frame(clip[1], params)
-    prev = lk_mod.prepare_frame(clip[0], params)
-    stages = {"prepare_frame": cuda_ms(lambda: lk_mod.prepare_frame(clip[1], params), 10)}
-    center = pts * (1.0 / (1 << params.max_level))
-    status = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
-    for level in range(params.max_level, -1, -1):
-        if level != params.max_level:
-            center = center * 2.0
-        stages[f"level_inputs L{level}"] = cuda_ms(
-            lambda: lk_mod.level_inputs(cur, prev, grid_xy, center, level, params), 10
-        )
-        lvl_args, statics = lk_mod.level_inputs(cur, prev, grid_xy, center, level, params)
-        stages[f"lk_level L{level}"] = cuda_ms(lambda: lk_level(*lvl_args, status, **statics), 10)
-        tl, status = lk_level(*lvl_args, status, **statics)
-        center = tl + lk_mod._halfwin(params, dev)
-    res = lk_mod.pyr_lk_prepared(cur, prev, pts, params)
-    stages["pyr_lk_prepared"] = cuda_ms(lambda: lk_mod.pyr_lk_prepared(cur, prev, pts, params), 10)
-    stages["_post_lk"] = cuda_ms(
-        lambda: lk_grid._post_lk(res, pts, H, W, NormalizeParams(), FilterParams()), 10
-    )
+    stages = stages_fn()
 
     args.out.parent.mkdir(parents=True, exist_ok=True)
     with args.out.open("w") as f:
@@ -131,19 +192,23 @@ def main() -> int:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
         f.write("\n")
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25))
-    print(f"scan {args.pairs} pairs 1080p: wall {wall_ms:.2f} ms unprofiled (best of 3), "
+    print(f"{args.path} scan {args.pairs} pairs {size}: wall {wall_ms:.2f} ms unprofiled (best of 3), "
           f"device {device_ms:.3f} ms profiled, busy share {device_ms / wall_ms:.3f}")
     print("host API calls per pair: "
           + ", ".join(f"{k} {v / args.pairs:.1f}" for k, v in api.most_common(6)))
     print("device time by kind (ms, share): " + ", ".join(
         f"{k} {v / 1e3:.3f} ({v / 1e3 / device_ms:.3f})" for k, v in dev_us.most_common()))
+    print("top device ops (ms, share): " + "; ".join(
+        f"{k} {v / 1e3:.3f} ({v / 1e3 / device_ms:.3f})" for k, v in op_us.most_common(8)))
     print("stage times, one pair (ms, CUDA events, mean of 10): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     print(f"profiler tables: {args.out}")
     print(json.dumps({
-        "gpu": smi, "pairs": args.pairs, "wall_ms": wall_ms, "device_ms": device_ms,
-        "busy_share": device_ms / wall_ms, "launches_per_pair": launches / args.pairs,
-        "api_calls": dict(api), "device_ms_by_kind": {k: v / 1e3 for k, v in dev_us.items()},
+        "gpu": smi, "path": args.path, "pairs": args.pairs, "wall_ms": wall_ms,
+        "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+        "launches_per_pair": launches / args.pairs, "api_calls": dict(api),
+        "device_ms_by_kind": {k: v / 1e3 for k, v in dev_us.items()},
+        "top_device_ops_ms": {k: v / 1e3 for k, v in op_us.most_common(8)},
         "stage_ms": stages,
     }))
     return 0

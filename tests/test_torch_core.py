@@ -10,13 +10,14 @@ from hackathonopticalflow_tpu import core as jcore
 from hackathonopticalflow_tpu_torch import core as tcore
 
 
-# LKParams fields that only pick a TPU implementation of the ported
-# computation, or serve paths the port does not have
+# fields that only pick a TPU implementation of the ported computation, or
+# serve paths the port does not have (warp_group_rows: Pallas tile geometry)
 JAX_ONLY = {
     "LKParams": {"use_pallas", "pallas_block", "early_exit", "lanes_packed",
                  "carve_dma", "slab_margin", "iter_margin"},
     "NormalizeParams": set(),
     "FilterParams": set(),
+    "FarnebackParams": {"warp_group_rows"},
 }
 
 

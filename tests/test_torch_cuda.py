@@ -7,13 +7,18 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
-from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
+from hackathonopticalflow_tpu_torch.core import FarnebackParams, LKParams, measurement_grid
+from hackathonopticalflow_tpu_torch.flow import dense as tdense
+from hackathonopticalflow_tpu_torch.ops import farneback as tfb
 from hackathonopticalflow_tpu_torch.ops import lk as tlk
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 
 PARAMS = LKParams(grid_step=30, compute_err=False)
 
@@ -25,15 +30,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _pair(h=270, w=480, dx=5, dy=3):
-    """u8 frames a, b of a smoothed noise texture, b(x, y) = a(x+dx, y+dy)."""
+def _frames(n, h=270, w=480, dx=5, dy=3):
+    """n u8 frames of a smoothed noise texture, frame t (x, y) = frame 0
+    (x + t dx, y + t dy)."""
     sm = np.random.RandomState(7).uniform(0, 255, (h + 100, w + 100))
     for _ in range(4):
         p = np.pad(sm, 1, mode="reflect")
         sm = 0.25 * p[:-2, 1:-1] + 0.5 * p[1:-1, 1:-1] + 0.25 * p[2:, 1:-1]
         sm = 0.25 * sm[:, :-2] + 0.5 * sm[:, 1:-1] + 0.25 * sm[:, 2:]
     sm = np.clip(np.floor(sm + 0.5), 0, 255).astype(np.uint8)
-    return sm[50 : 50 + h, 50 : 50 + w], sm[50 + dy : 50 + dy + h, 50 + dx : 50 + dx + w]
+    return [sm[50 + t * dy : 50 + t * dy + h, 50 + t * dx : 50 + t * dx + w] for t in range(n)]
+
+
+def _pair(h=270, w=480, dx=5, dy=3):
+    """u8 frames a, b of a smoothed noise texture, b(x, y) = a(x+dx, y+dy)."""
+    return _frames(2, h, w, dx, dy)
 
 
 @pytest.mark.cuda
@@ -56,3 +67,36 @@ def test_lk_level_kernel_matches_plain(cuda_device, level):
     tl_p, st_p = lk_level_reference(*args, status, **statics)
     assert torch.equal(st_k, st_p)
     assert torch.equal(tl_k, tl_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(90, 160), (361, 643)])
+def test_warp_bilinear_kernel_matches_plain(cuda_device, hw):
+    """Identical over every pixel, inside the frame and past its borders:
+    both round every product and sum alike (no FMA contraction)."""
+    h, w = hw
+    rng = np.random.RandomState(h)
+    src = torch.from_numpy(rng.randn(2, 5, h, w).astype(np.float32) * 100).to(cuda_device)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    fx = torch.from_numpy(xx + rng.uniform(-8, 8, (2, h, w)).astype(np.float32)).to(cuda_device)
+    fy = torch.from_numpy(yy + rng.uniform(-8, 8, (2, h, w)).astype(np.float32)).to(cuda_device)
+    before = warp_bilinear.launches
+    out = warp_bilinear(src, fx, fy)
+    torch.cuda.synchronize()
+    assert warp_bilinear.launches == before + 1
+    assert torch.equal(out, warp_bilinear_reference(src, fx, fy))
+
+
+@pytest.mark.cuda
+def test_farneback_video_kernel_path_matches_plain(cuda_device):
+    """2 pairs of the dense scan through the kernel equal the plain path's:
+    the rest of the path is the same ops on the same inputs."""
+    params = FarnebackParams()
+    clip = torch.from_numpy(np.stack(_frames(3, 144, 256, 1, 1))).to(cuda_device)
+    before = warp_bilinear.launches
+    got = tdense.farneback_flow_video(clip, params)
+    torch.cuda.synchronize()
+    assert warp_bilinear.launches - before == 2 * params.iterations * (params.levels + 1)
+    with mock.patch.object(tfb, "warp_bilinear", warp_bilinear_reference):
+        want = tdense.farneback_flow_video(clip, params)
+    assert torch.equal(got, want)

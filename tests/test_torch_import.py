@@ -1,5 +1,5 @@
 """The port imports without jax and without the JAX package, and its kernel
-wrapper takes the plain path on CPU tensors."""
+wrappers take the plain path on CPU tensors."""
 
 import subprocess
 import sys
@@ -17,9 +17,14 @@ for name in BLOCKED:
     sys.modules[name] = None  # any import of it now raises ImportError
 import torch
 import hackathonopticalflow_tpu_torch as pkg
+names = set()
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+    names.add(m.name[len(pkg.__name__) + 1:])
+assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense"} <= names, names
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
+from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow_video
 
 g = torch.Generator().manual_seed(0)
 n, win, m = 3, 5, 2
@@ -34,6 +39,14 @@ out = lk_level(tmpl, plane, 5, tl0, org, st, **kw)
 ref = lk_level_reference(tmpl, plane, 5, tl0, org, st, **kw)
 assert lk_level.launches == 0
 assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+src = torch.rand((5, 6, 7), generator=g)
+fx = torch.rand((6, 7), generator=g) * 9 - 1
+fy = torch.rand((6, 7), generator=g) * 8 - 1
+assert torch.equal(warp_bilinear(src, fx, fy), warp_bilinear_reference(src, fx, fy))
+flows = farneback_flow_video(torch.floor(torch.rand((3, 32, 48), generator=g) * 255).to(torch.uint8))
+assert warp_bilinear.launches == 0
+assert flows.shape == (2, 32, 48, 2) and bool(torch.isfinite(flows).all())
 assert blocked_mods() <= before
 print("OK")
 """
