@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's sparse pathfinder path and its dense
-Farneback path once on one GPU.
+"""Drive the PyTorch/CUDA port's sparse pathfinder path, its dense
+Farneback path and its Shi-Tomasi + forward-backward LK tracker once on
+one GPU.
 
 Run from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
@@ -9,8 +10,9 @@ toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
 
 Phases, in order; any failure exits non-zero:
 1. device check: a CUDA device is required, there is no CPU path;
-2. kernel build: csrc/lk_level.cu and csrc/warp_bilinear.cu ->
-   build/torch_kernels/ (one nvcc each, started together, sm_90a);
+2. kernel build: csrc/lk_level.cu, csrc/warp_bilinear.cu and
+   csrc/patch_bilinear.cu -> build/torch_kernels/ (one nvcc each, started
+   together, sm_90a);
 3. lk_level kernel vs its plain PyTorch version at L2, L1 and L0 of the
    production params on one 1080p pair: status and top-lefts identical
    (both sum exactly in float64, so any difference is a fault), and the
@@ -35,7 +37,30 @@ Phases, in order; any failure exits non-zero:
    pixels at least DENSE_BORDER px from the border;
 8. dense times: steady-state fps of the 24-pair scan through the kernel
    and of 2 pairs through the plain version and through the kernel (best
-   of 3 each).
+   of 3 each);
+9. tracker kernels vs their plain versions at TrackerParams()'s shapes on
+   one 1080p pair (256 points, some in the edge bands where the v1 slab is
+   clipped): patch_bilinear's templates (C = 3) and err windows (C = 1) at
+   L2, L1 and L0, and lk_level in both crop geometries at every level,
+   identical;
+10. tracker main path: track_video at TrackerParams() over the 49-frame
+    1080p clip (48 steps, after a seeding step on frame 0, as the JAX
+    package's tracker bench runs it): 6 lk_level and 8 patch_bilinear
+    launches per step, finite heads, live tracks per step, forward-backward
+    survival share, median endpoint error of surviving heads against the
+    known zoom < TOL_EPE_PX; the first 4 steps identical to the plain path
+    (both kernels replaced by their plain versions), with points_lanes and
+    without it (the v1 geometry);
+11. tracker times: fps of the 48 steps through the kernels and through the
+    plain versions (best of 3), and each kernel's device time at the
+    tracker's shapes (graph replay).
+
+Each kernel's record carries its bound: the least time an H100 could take
+for the same work, the larger of the bytes it must move (each input read
+once, each output written once, at HBM_BYTES_PER_S) and the operations it
+does on these inputs (at the peak rate for their type), and, where one
+PyTorch call computes the same function (F.grid_sample for both bilinear
+kernels), that call's device time; lk_level has no such call.
 
 The clips are synthetic: a smooth random texture (seeded torch.Generator)
 zoomed about the frame centre by ZOOM per frame, as in forward flight, so
@@ -74,6 +99,14 @@ DENSE_BORDER = 40  # px; Farneback's replicate borders bias the flow near the ed
 # recovers about a third of the zoom
 DENSE_CELL = 2
 TOL_DENSE_EPE_PX = 0.1
+
+TRACKER_PLAIN_STEPS = 4  # steps held identical to the plain path
+
+# NVIDIA H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit):
+# HBM bandwidth, float32 and float64 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 
 def log(*a):
@@ -190,6 +223,33 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0) -> tuple[float, str]:
+    """(least ms an H100 could take, what bounds it): the larger of the
+    bytes over HBM_BYTES_PER_S and the operations over their peak rates."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lk_level_work(args, statics, stats) -> tuple[float, float, float]:
+    """(bytes, float32 ops, float64 ops) of one lk_level call on these
+    inputs: templates read, the crops of the points past the spectral gate
+    (at most the level plane), the per-point inputs and outputs; per
+    template pixel 6 float64 ops for A, per sampled window pixel 16
+    float32 ops (blend, W_BITS rounding, difference) and 4 float64 ops
+    (b)."""
+    from hackathonopticalflow_tpu_torch.ops.lk_level import crop_size
+
+    tmpl, plane_p = args[0], args[1]
+    n, npix = tmpl.shape[0], statics["win_w"] * statics["win_h"]
+    geometry = statics.get("geometry", "centred")
+    cw, ch = crop_size(geometry, statics["m"], statics["win_w"], statics["win_h"])
+    crops = min(stats["good"] * cw * ch, plane_p.numel()) * 4
+    n_bytes = tmpl.numel() * 4 + crops + n * (8 + 8 + 1) + n * (8 + 1)
+    pix_iters = stats["iterations"] * npix
+    return n_bytes, 16.0 * pix_iters, 6.0 * n * npix + 4.0 * pix_iters
+
+
 def host_seconds(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -198,20 +258,20 @@ def host_seconds(fn) -> float:
     return time.perf_counter() - t0
 
 
-def sparse_phases(dev) -> dict:
+def sparse_phases(dev, clip) -> dict:
     """Phases 3-5: the sparse pathfinder path through lk_level."""
     from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
     from hackathonopticalflow_tpu_torch.flow import lk_grid
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
 
     params = LKParams(grid_step=30, compute_err=False)
-    clip = make_clip(dev, H, W, N_FRAMES)
     pts_np = measurement_grid(H, W, params.grid_step)
     pts = torch.from_numpy(pts_np).to(dev)
     grid_xy = (np.unique(pts_np[:, 0]).astype(int), np.unique(pts_np[:, 1]).astype(int))
-    log(f"sparse clip: {tuple(clip.shape)} uint8, {pts.shape[0]} grid points, zoom {ZOOM}/frame")
+    log(f"sparse: {pts.shape[0]} grid points")
 
     # ---- 3. kernel vs plain, per level (backward: template = frame 1) ----
     cur = lk_mod.prepare_frame(clip[1], params)
@@ -220,6 +280,7 @@ def sparse_phases(dev) -> dict:
     status = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
     max_err = 0.0
     level_ms, level_plain_ms = {}, {}
+    work = [0.0, 0.0, 0.0]
     for level in range(params.max_level, -1, -1):
         if level != params.max_level:
             center = center * 2.0
@@ -228,7 +289,10 @@ def sparse_phases(dev) -> dict:
         tl_k, st_k = lk_level(*args, status, **statics)
         torch.cuda.synchronize()
         launches = lk_level.launches
-        tl_p, st_p = lk_level_reference(*args, status, **statics)
+        stats = {}
+        tl_p, st_p = lk_level_reference(*args, status, **statics, stats=stats)
+        level_work = lk_level_work(args, statics, stats)
+        work = [a + b for a, b in zip(work, level_work)]
         err = float(torch.linalg.vector_norm(tl_k - tl_p, dim=-1).max())
         same_status = bool(torch.equal(st_k, st_p))
         same_tl = bool(torch.equal(tl_k, tl_p))
@@ -240,19 +304,19 @@ def sparse_phases(dev) -> dict:
         max_err = max(max_err, err)
         level_ms[level] = cuda_ms(lambda: lk_level(*args, status, **statics), 20)
         level_plain_ms[level] = cuda_ms(lambda: lk_level_reference(*args, status, **statics), 3)
-        log(f"L{level}: lk_level {level_ms[level]:.4f} ms, plain {level_plain_ms[level]:.4f} ms")
+        log(f"L{level}: lk_level {level_ms[level]:.4f} ms, plain {level_plain_ms[level]:.4f} ms, "
+            "bound %.4f ms (%s)" % bound(*level_work))
         center = tl_p + lk_mod._halfwin(params, dev)
         status = st_p
 
     # ---- 4. main path ----
-    lk_level.launches = 0
-    warp_bilinear.launches = 0
-    res = lk_grid.lk_grid_flow_video(clip, pts, lk=params)
-    one = lk_grid.lk_grid_flow(clip[0], clip[1], pts, lk=params)
+    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
+    res = lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev)
+    one = lk_grid.lk_grid_flow(clip[0], clip[1], pts, lk=params, device=dev)
     torch.cuda.synchronize()
     main_launches = lk_level.launches
     log(f"sparse main path: lk_level launches {main_launches}, warp_bilinear launches "
-        f"{warp_bilinear.launches}")
+        f"{warp_bilinear.launches}, patch_bilinear launches {patch_bilinear.launches}")
     if main_launches < 3 * (N_FRAMES - 1):
         raise SystemExit("the sparse main path did not run the lk_level kernel at every level")
     for name, v in res._asdict().items():
@@ -273,7 +337,7 @@ def sparse_phases(dev) -> dict:
             raise SystemExit(f"lk_grid_flow disagrees with the scan's first step on {name}")
 
     with mock.patch.object(lk_mod, "lk_level", lk_level_reference):
-        plain = lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params)
+        plain = lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
     good_agree = float((plain.good == res.good[:PLAIN_PAIRS]).double().mean())
     raw_diff = float((plain.raw_next_pts - res.raw_next_pts[:PLAIN_PAIRS]).abs().max())
     log(f"plain path ({PLAIN_PAIRS} pairs): good agreement {good_agree:.4f}, "
@@ -282,12 +346,14 @@ def sparse_phases(dev) -> dict:
         raise SystemExit("good disagrees with the plain path")
 
     # ---- 5. times ----
-    scan_s = min(host_seconds(lambda: lk_grid.lk_grid_flow_video(clip, pts, lk=params))
+    scan_s = min(host_seconds(lambda: lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev))
                  for _ in range(3))
     with mock.patch.object(lk_mod, "lk_level", lk_level_reference):
-        lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params)
+        lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
         plain_s = min(
-            host_seconds(lambda: lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params))
+            host_seconds(
+                lambda: lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
+            )
             for _ in range(2)
         )
     fps = (N_FRAMES - 1) / scan_s
@@ -295,8 +361,11 @@ def sparse_phases(dev) -> dict:
     log(f"sparse scan 48 pairs 1080p through lk_level: {fps:.2f} fps ({scan_s * 1e3:.1f} ms)")
     log(f"sparse scan {PLAIN_PAIRS} pairs 1080p through lk_level_reference: {plain_fps:.2f} fps "
         f"({plain_s * 1e3:.1f} ms)")
+    bound_ms, bound_by = bound(*work)
     log("lk_level per level (ms, kernel / plain): "
-        + ", ".join(f"L{lv} {level_ms[lv]:.4f} / {level_plain_ms[lv]:.4f}" for lv in level_ms))
+        + ", ".join(f"L{lv} {level_ms[lv]:.4f} / {level_plain_ms[lv]:.4f}" for lv in level_ms)
+        + f"; bound of the 3 levels {bound_ms:.4f} ms ({bound_by}: {work[0] / 1e6:.1f} MB, "
+        f"{work[1] / 1e9:.3f} GFLOP f32, {work[2] / 1e9:.3f} GFLOP f64)")
     return {
         "kernel": {
             "name": "lk_level",
@@ -304,16 +373,38 @@ def sparse_phases(dev) -> dict:
             "source": "hackathonopticalflow_tpu_torch/csrc/lk_level.cu",
             "replaces": "hackathonopticalflow_tpu/ops/lk_pallas3.py:82, "
             "hackathonopticalflow_tpu/ops/lk_pallas3.py:353, "
-            "hackathonopticalflow_tpu/ops/carve_pallas.py:159",
+            "hackathonopticalflow_tpu/ops/carve_pallas.py:159, "
+            "hackathonopticalflow_tpu/ops/lk_pallas.py:45",
             "launches": main_launches,
+            "launches_by_path": {"sparse": main_launches},
             "max_abs_err": max_err,
             "ms": sum(level_ms.values()),
             "plain_ms": sum(level_plain_ms.values()),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
         },
         "scan_fps": fps,
         "plain_scan_fps": plain_fps,
         "median_epe_px": med_epe,
     }
+
+
+def grid_sample_ms(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_mode: str, reps: int) -> float:
+    """Device time of the one PyTorch call that samples src (C, Hs, Ws)
+    bilinearly at absolute coordinates x, y (any equal shapes):
+    F.grid_sample with align_corners=True, the coordinates normalized
+    beforehand (graph replay)."""
+    hs, ws = src.shape[-2:]
+    grid = torch.stack([x * (2.0 / (ws - 1)) - 1.0, y * (2.0 / (hs - 1)) - 1.0], dim=-1)
+    grid = grid.reshape(1, -1, x.shape[-1], 2).contiguous()
+    inp = src[None].contiguous()
+    return graph_ms(
+        lambda: torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode=padding_mode, align_corners=True
+        ),
+        reps,
+    )
 
 
 def dense_phases(dev) -> dict:
@@ -322,6 +413,7 @@ def dense_phases(dev) -> dict:
     from hackathonopticalflow_tpu_torch.flow import dense
     from hackathonopticalflow_tpu_torch.ops import farneback as fb
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 
     params = FarnebackParams()
@@ -333,7 +425,8 @@ def dense_phases(dev) -> dict:
     rs0 = fb.prepare_frame(clip[0], params)
     rs1 = fb.prepare_frame(clip[1], params)
     max_err = 0.0
-    level_ms, level_plain_ms = {}, {}
+    level_ms, level_plain_ms, level_lib_ms = {}, {}, {}
+    n_bytes = f32_ops = 0.0
     for r0, r1 in zip(rs0, rs1):
         hk, wk = r0.shape[-2:]
         zero = torch.zeros((hk, wk, 2), dtype=torch.float32, device=dev)
@@ -356,22 +449,31 @@ def dense_phases(dev) -> dict:
         max_err = max(max_err, err)
         level_ms[key] = graph_ms(lambda: warp_bilinear(r1, fx, fy), 50)
         level_plain_ms[key] = graph_ms(lambda: warp_bilinear_reference(r1, fx, fy), 10)
+        # the same sampling with border clamping (the warp clamps its corners
+        # and fractions to the plane)
+        level_lib_ms[key] = grid_sample_ms(r1, fx, fy, "border", 50)
         call_ms = cuda_ms(lambda: warp_bilinear(r1, fx, fy), 50)
         call_plain_ms = cuda_ms(lambda: warp_bilinear_reference(r1, fx, fy), 10)
+        c = r1.shape[0]
+        lv_bytes = (2 + 2 * c) * hk * wk * 4  # fx, fy, C source and C output planes
+        lv_ops = (18 + 7 * c) * hk * wk  # corners, fractions, weights; 7 per channel
+        n_bytes += lv_bytes
+        f32_ops += lv_ops
         log(f"warp {key}: device time (graph replay) warp_bilinear {level_ms[key]:.4f} ms, "
-            f"plain {level_plain_ms[key]:.4f} ms; eager call to call {call_ms:.4f} ms, "
-            f"plain {call_plain_ms:.4f} ms")
+            f"plain {level_plain_ms[key]:.4f} ms, F.grid_sample {level_lib_ms[key]:.4f} ms, "
+            "bound %.4f ms (%s); " % bound(lv_bytes, lv_ops)
+            + f"eager call to call {call_ms:.4f} ms, plain {call_plain_ms:.4f} ms")
 
     # ---- 7. main path ----
-    lk_level.launches = 0
-    warp_bilinear.launches = 0
-    flows = dense.farneback_flow_video(clip, params)
-    one = dense.farneback_flow(clip[0], clip[1], params)
+    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
+    flows = dense.farneback_flow_video(clip, params, device=dev)
+    one = dense.farneback_flow(clip[0], clip[1], params, device=dev)
     torch.cuda.synchronize()
     main_launches = warp_bilinear.launches
     per_pair = params.iterations * (params.levels + 1)
     log(f"dense main path: warp_bilinear launches {main_launches} "
-        f"({per_pair} per pair expected), lk_level launches {lk_level.launches}")
+        f"({per_pair} per pair expected), lk_level launches {lk_level.launches}, "
+        f"patch_bilinear launches {patch_bilinear.launches}")
     if main_launches < per_pair * (pairs + 1):
         raise SystemExit("the dense main path did not run warp_bilinear at every iteration")
     if flows.shape != (pairs, DENSE_H, DENSE_W, 2) or not bool(torch.isfinite(flows).all()):
@@ -385,7 +487,7 @@ def dense_phases(dev) -> dict:
         raise SystemExit("the dense main path's flow is wrong")
     plain_clip = clip[: DENSE_PLAIN_PAIRS + 1]
     with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
-        plain = dense.farneback_flow_video(plain_clip, params)
+        plain = dense.farneback_flow_video(plain_clip, params, device=dev)
     same = bool(torch.equal(plain, flows[:DENSE_PLAIN_PAIRS]))
     log(f"plain path ({DENSE_PLAIN_PAIRS} pairs): identical to the kernel path {same}, "
         f"max |d| {float((plain - flows[:DENSE_PLAIN_PAIRS]).abs().max()):.3g} px")
@@ -393,19 +495,23 @@ def dense_phases(dev) -> dict:
         raise SystemExit("the dense kernel path disagrees with the plain path")
 
     # ---- 8. times ----
-    scan_s = min(host_seconds(lambda: dense.farneback_flow_video(clip, params)) for _ in range(3))
+    scan_s = min(host_seconds(lambda: dense.farneback_flow_video(clip, params, device=dev)) for _ in range(3))
     with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
-        plain_s = min(host_seconds(lambda: dense.farneback_flow_video(plain_clip, params))
+        plain_s = min(host_seconds(lambda: dense.farneback_flow_video(plain_clip, params, device=dev))
                       for _ in range(3))
-    short_s = min(host_seconds(lambda: dense.farneback_flow_video(plain_clip, params)) for _ in range(3))
+    short_s = min(host_seconds(lambda: dense.farneback_flow_video(plain_clip, params, device=dev))
+                  for _ in range(3))
     fps = pairs / scan_s
     plain_fps = DENSE_PLAIN_PAIRS / plain_s
     log(f"dense scan {pairs} pairs 720p through warp_bilinear: {fps:.2f} fps ({scan_s * 1e3:.1f} ms)")
     log(f"dense scan {DENSE_PLAIN_PAIRS} pairs 720p through warp_bilinear_reference: "
         f"{plain_fps:.2f} fps ({plain_s * 1e3:.1f} ms); through warp_bilinear: "
         f"{DENSE_PLAIN_PAIRS / short_s:.2f} fps ({short_s * 1e3:.1f} ms)")
-    log("warp_bilinear per level (device ms, kernel / plain): "
-        + ", ".join(f"{k} {level_ms[k]:.4f} / {level_plain_ms[k]:.4f}" for k in level_ms))
+    bound_ms, bound_by = bound(n_bytes, f32_ops)
+    log("warp_bilinear per level (device ms, kernel / plain / F.grid_sample): "
+        + ", ".join(f"{k} {level_ms[k]:.4f} / {level_plain_ms[k]:.4f} / {level_lib_ms[k]:.4f}"
+                    for k in level_ms)
+        + f"; bound of the 4 levels {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB)")
     return {
         "kernel": {
             "name": "warp_bilinear",
@@ -413,13 +519,221 @@ def dense_phases(dev) -> dict:
             "source": "hackathonopticalflow_tpu_torch/csrc/warp_bilinear.cu",
             "replaces": "hackathonopticalflow_tpu/ops/warp_pallas.py:207",
             "launches": main_launches,
+            "launches_by_path": {"dense": main_launches},
             "max_abs_err": max_err,
             "ms": sum(level_ms.values()),
             "plain_ms": sum(level_plain_ms.values()),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": sum(level_lib_ms.values()),
         },
         "dense_fps": fps,
         "plain_dense_fps": plain_fps,
         "dense_median_epe_px": med_epe,
+    }
+
+
+def tracker_points(h: int, w: int, n: int) -> np.ndarray:
+    """(n, 2) float32 points: most spread over the frame, 24 in the edge
+    bands where TrackerParams()'s v1 slab (pad 17, margin 8) is clipped
+    into the padded plane while the point is live (window top-left x in
+    [-15, -9) or (w-8, w) at some level, and the same in y)."""
+    rng = np.random.RandomState(SEED)
+    bx = np.array([-30, -24, -18, -13, -10, -7, -5, -3.5, w + 0.5, w + 3, w + 6, w + 11, w + 17, w + 24])
+    by = np.array([-28, -14, -9, -6, -3, h + 1.5, h + 5, h + 10, h + 19, h + 26])
+    band = np.concatenate([
+        np.stack([bx, rng.uniform(20, h - 20, bx.size)], -1),
+        np.stack([rng.uniform(20, w - 20, by.size), by], -1),
+    ])
+    k = n - band.shape[0]
+    inner = np.stack([rng.uniform(8, w - 8, k), rng.uniform(8, h - 8, k)], -1)
+    return np.concatenate([inner, band]).astype(np.float32)
+
+
+def tracker_phases(dev, clip) -> dict:
+    """Phases 9-11: the tracker through patch_bilinear and lk_level."""
+    import dataclasses
+
+    from hackathonopticalflow_tpu_torch.core import TrackerParams
+    from hackathonopticalflow_tpu_torch.flow import tracker
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
+
+    params = TrackerParams()
+    lk_v1 = dataclasses.replace(params.lk, points_lanes=False)
+    win_w, win_h = params.lk.win_size
+    pts = torch.from_numpy(tracker_points(H, W, params.max_tracks)).to(dev)
+    n_band = 24
+    log(f"tracker: {params}")
+
+    # ---- 9a. lk_level in both crop geometries at the tracker's shapes ----
+    lk_max_err = 0.0
+    lk_ms, lk_plain_ms = {}, {}
+    for geometry, lkp in (("centred", params.lk), ("v1", lk_v1)):
+        prev = lk_mod.prepare_frame(clip[0], lkp)
+        nxt = lk_mod.prepare_frame(clip[1], lkp)
+        center = pts * (1.0 / (1 << lkp.max_level))
+        status = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+        for level in range(lkp.max_level, -1, -1):
+            if level != lkp.max_level:
+                center = center * 2.0
+            args, statics, _ = lk_mod.point_level_inputs(prev, nxt, pts, center, level, lkp)
+            lk_level.launches = 0
+            tl_k, st_k = lk_level(*args, status, **statics)
+            torch.cuda.synchronize()
+            launches = lk_level.launches
+            stats = {}
+            tl_p, st_p = lk_level_reference(*args, status, **statics, stats=stats)
+            err = float(torch.linalg.vector_norm(tl_k - tl_p, dim=-1).max())
+            same = bool(torch.equal(tl_k, tl_p)) and bool(torch.equal(st_k, st_p))
+            moved = (tl_p - args[3]).abs().amax(dim=-1) > 1e-3
+            log(f"tracker lk_level {geometry} L{level}: launches {launches}, max |d| {err:.3g} px, "
+                f"identical {same}, good templates {stats['good']}, iterations {stats['iterations']}, "
+                f"band points moved {int(moved[-n_band:].sum())}/{n_band}, "
+                "bound %.5f ms (%s)" % bound(*lk_level_work(args, statics, stats)))
+            if launches != 1 or not same:
+                raise SystemExit(f"tracker lk_level {geometry} L{level}: kernel disagrees with the plain version")
+            lk_max_err = max(lk_max_err, err)
+            key = f"{geometry} L{level}"
+            lk_ms[key] = graph_ms(lambda: lk_level(*args, status, **statics), 20)
+            lk_plain_ms[key] = graph_ms(lambda: lk_level_reference(*args, status, **statics), 3)
+            center = tl_p + lk_mod._halfwin(lkp, dev)
+            status = st_p
+
+    # ---- 9b. patch_bilinear: templates (C = 3) per level, err windows (C = 1) ----
+    prev = lk_mod.prepare_frame(clip[0], params.lk)
+    nxt = lk_mod.prepare_frame(clip[1], params.lk)
+    pad = lk_mod._frame_pad(params.lk)
+    halfwin = lk_mod._halfwin(params.lk, dev)
+    calls = {}
+    for level in range(params.lk.max_level, -1, -1):
+        planes = torch.stack([prev.img_p[level], prev.dix_p[level], prev.diy_p[level]])
+        calls[f"tmpl L{level}"] = (planes, (pts * (1.0 / (1 << level)) - halfwin + pad).contiguous(), True)
+    calls["err L0"] = (nxt.img_p[0][None].contiguous(), (pts - halfwin + pad).contiguous(), False)
+    pb_max_err = 0.0
+    pb_ms, pb_plain_ms, pb_lib_ms = {}, {}, {}
+    n_bytes = f32_ops = 0.0
+    ii = torch.arange(win_h, dtype=torch.float32, device=dev)[None, :, None]
+    jj = torch.arange(win_w, dtype=torch.float32, device=dev)[None, None, :]
+    for key, (planes, tl, quantize) in calls.items():
+        patch_bilinear.launches = 0
+        out_k = patch_bilinear(planes, tl, win_h, win_w, quantize)
+        torch.cuda.synchronize()
+        launches = patch_bilinear.launches
+        out_p = patch_bilinear_reference(planes, tl, win_h, win_w, quantize)
+        err = float((out_k - out_p).abs().max())
+        same = bool(torch.equal(out_k, out_p))
+        log(f"patch_bilinear {key} {tuple(out_k.shape)}: launches {launches}, max |d| {err:.3g}, "
+            f"identical {same}")
+        if launches != 1 or not same:
+            raise SystemExit(f"patch_bilinear {key}: kernel disagrees with the plain version")
+        pb_max_err = max(pb_max_err, err)
+        pb_ms[key] = graph_ms(lambda: patch_bilinear(planes, tl, win_h, win_w, quantize), 50)
+        pb_plain_ms[key] = graph_ms(lambda: patch_bilinear_reference(planes, tl, win_h, win_w, quantize), 20)
+        xs = (tl[:, 0, None, None] + jj).expand(-1, win_h, -1)
+        ys = (tl[:, 1, None, None] + ii).expand(-1, -1, win_w)
+        pb_lib_ms[key] = grid_sample_ms(planes, xs, ys, "zeros", 50)
+        c, n = planes.shape[0], tl.shape[0]
+        # crops (at most the planes), top-lefts, windows; 7 ops per output
+        # value (+4 for the W_BITS rounding), ~12 per point
+        call_bytes = min(planes.numel(), n * c * (win_h + 1) * (win_w + 1)) * 4 + n * 8 + out_k.numel() * 4
+        call_ops = out_k.numel() * (11 if quantize else 7) + 12 * n
+        n_bytes += call_bytes
+        f32_ops += call_ops
+        log(f"patch_bilinear {key}: device time (graph replay) {pb_ms[key]:.4f} ms, plain "
+            f"{pb_plain_ms[key]:.4f} ms, F.grid_sample {pb_lib_ms[key]:.4f} ms, "
+            "bound %.5f ms (%s)" % bound(call_bytes, call_ops))
+    pb_bound_ms, pb_bound_by = bound(n_bytes, f32_ops)
+
+    # ---- 10. main path ----
+    steps = clip.shape[0] - 1
+    s0 = tracker.track_step(tracker.init_tracker(params), clip[0], clip[0], params, device=dev)
+    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
+    state, (heads, alive, length) = tracker.track_video(clip, params, s0, device=dev)
+    torch.cuda.synchronize()
+    lk_n, pb_n = lk_level.launches, patch_bilinear.launches
+    log(f"tracker main path ({steps} steps): lk_level launches {lk_n} ({6 * steps} expected), "
+        f"patch_bilinear launches {pb_n} ({8 * steps} expected), warp_bilinear launches "
+        f"{warp_bilinear.launches}")
+    if lk_n != 6 * steps or pb_n != 8 * steps:
+        raise SystemExit("the tracker's main path did not run both kernels at every level")
+    if heads.shape != (steps, params.max_tracks, 2) or not bool(torch.isfinite(heads).all()):
+        raise SystemExit(f"tracker heads: shape {tuple(heads.shape)} or non-finite values")
+    live = alive.sum(dim=1)
+    prev_heads = torch.cat([tracker._heads(s0)[None], heads[:-1]])
+    prev_alive = torch.cat([s0.alive[None], alive[:-1]])
+    surv = alive & (length >= 2)  # kept by the forward-backward gate this step
+    c = torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], dtype=torch.float64, device=dev)
+    want = c + ZOOM * (prev_heads.double() - c)
+    epe = torch.linalg.vector_norm(heads.double() - want, dim=-1)[surv]
+    med_epe = float(epe.median())
+    survival = float(surv.sum()) / float(prev_alive.sum())
+    log(f"tracker: live tracks per step {live.tolist()}")
+    log(f"tracker: median EPE of surviving heads {med_epe:.4f} px over {int(surv.sum())} head-steps, "
+        f"forward-backward survival share {survival:.4f}, final live {int(state.alive.sum())}")
+    if not med_epe < TOL_EPE_PX or int(live.min()) < 1:
+        raise SystemExit("the tracker's main path is wrong")
+    short = clip[: TRACKER_PLAIN_STEPS + 1]
+    for geometry, lkp in (("centred", params.lk), ("v1", lk_v1)):
+        p = dataclasses.replace(params, lk=lkp)
+        lk_level.launches = patch_bilinear.launches = 0
+        got, got_hist = tracker.track_video(short, p, s0, device=dev)
+        torch.cuda.synchronize()
+        n_lk, n_pb = lk_level.launches, patch_bilinear.launches
+        with mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+                mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
+            want_state, want_hist = tracker.track_video(short, p, s0, device=dev)
+        same = all(torch.equal(getattr(got, f), getattr(want_state, f)) for f in ("traj", "length", "alive"))
+        same = same and all(torch.equal(a, b) for a, b in zip(got_hist, want_hist))
+        log(f"tracker {geometry}: first {TRACKER_PLAIN_STEPS} steps identical to the plain path {same} "
+            f"(lk_level {n_lk}, patch_bilinear {n_pb} launches), live {int(got.alive.sum())}")
+        if not same or n_lk != 6 * TRACKER_PLAIN_STEPS or n_pb != 8 * TRACKER_PLAIN_STEPS:
+            raise SystemExit(f"the tracker's kernel path ({geometry}) disagrees with the plain path")
+
+    # ---- 11. times ----
+    track_s = min(host_seconds(lambda: tracker.track_video(clip, params, s0, device=dev)) for _ in range(3))
+    with mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+            mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
+        plain_s = min(host_seconds(lambda: tracker.track_video(clip, params, s0, device=dev))
+                      for _ in range(3))
+    fps, plain_fps = steps / track_s, steps / plain_s
+    log(f"tracker {steps} steps 1080p through the kernels: {fps:.2f} fps ({track_s * 1e3:.1f} ms); "
+        f"through the plain versions: {plain_fps:.2f} fps ({plain_s * 1e3:.1f} ms)")
+    log("tracker lk_level per level (device ms, kernel / plain): "
+        + ", ".join(f"{k} {lk_ms[k]:.4f} / {lk_plain_ms[k]:.4f}" for k in lk_ms))
+    log("patch_bilinear per call (device ms, kernel / plain / F.grid_sample): "
+        + ", ".join(f"{k} {pb_ms[k]:.4f} / {pb_plain_ms[k]:.4f} / {pb_lib_ms[k]:.4f}" for k in pb_ms)
+        + f"; bound of the 4 calls {pb_bound_ms:.5f} ms ({pb_bound_by}: {n_bytes / 1e6:.2f} MB)")
+    return {
+        "kernel": {
+            "name": "patch_bilinear",
+            "route": "cuda",
+            "source": "hackathonopticalflow_tpu_torch/csrc/patch_bilinear.cu",
+            "replaces": "hackathonopticalflow_tpu/ops/carve_pallas.py:231",
+            "launches": pb_n,
+            "launches_by_path": {"tracker": pb_n},
+            "max_abs_err": pb_max_err,
+            "ms": sum(pb_ms.values()),
+            "plain_ms": sum(pb_plain_ms.values()),
+            "bound_ms": pb_bound_ms,
+            "bound_by": pb_bound_by,
+            "library_ms": sum(pb_lib_ms.values()),
+        },
+        "lk_level": {
+            "launches": lk_n,
+            "max_abs_err": lk_max_err,
+            "tracker_ms": sum(v for k, v in lk_ms.items() if k.startswith("centred")),
+            "tracker_plain_ms": sum(v for k, v in lk_plain_ms.items() if k.startswith("centred")),
+            "tracker_v1_ms": sum(v for k, v in lk_ms.items() if k.startswith("v1")),
+            "tracker_v1_plain_ms": sum(v for k, v in lk_plain_ms.items() if k.startswith("v1")),
+        },
+        "tracker_fps": fps,
+        "plain_tracker_fps": plain_fps,
+        "tracker_median_epe_px": med_epe,
+        "tracker_survival_share": survival,
     }
 
 
@@ -443,7 +757,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from hackathonopticalflow_tpu_torch import kernels
 
-    names = ["lk_level", "warp_bilinear"]
+    names = ["lk_level", "warp_bilinear", "patch_bilinear"]
     t0 = time.perf_counter()
     paths = kernels.build_all(names)
     for name in names:
@@ -455,14 +769,23 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}:", line.strip())
 
-    sparse = sparse_phases(dev)
+    clip = make_clip(dev, H, W, N_FRAMES)
+    log(f"1080p clip: {tuple(clip.shape)} uint8, zoom {ZOOM}/frame")
+    sparse = sparse_phases(dev, clip)
     dense = dense_phases(dev)
+    track = tracker_phases(dev, clip)
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
         raise SystemExit(f"the port loaded jax or the JAX package: {foreign[:5]}")
 
-    record = {"kernels": [sparse.pop("kernel"), dense.pop("kernel")], **sparse, **dense}
+    lk = sparse.pop("kernel")
+    lk_track = track.pop("lk_level")
+    lk["launches"] += lk_track.pop("launches")
+    lk["launches_by_path"]["tracker"] = lk["launches"] - lk["launches_by_path"]["sparse"]
+    lk["max_abs_err"] = max(lk["max_abs_err"], lk_track.pop("max_abs_err"))
+    lk.update(lk_track)
+    record = {"kernels": [lk, dense.pop("kernel"), track.pop("kernel")], **sparse, **dense, **track}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

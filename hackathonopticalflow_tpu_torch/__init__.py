@@ -9,15 +9,20 @@ Subpackages
 -----------
 core      configs and the measurement grid (the JAX package's fields and
           defaults, held equal by tests/test_torch_core.py)
-ops       frame preparation, grid templates, the LK level (CUDA kernel
-          `lk_level` beside its plain PyTorch version), pyramidal LK, stats;
-          dense image primitives, the coefficient warp (CUDA kernel
-          `warp_bilinear` beside its plain version), Farneback
+ops       frame preparation, grid templates, windows at arbitrary points
+          (CUDA kernel `patch_bilinear` beside its plain PyTorch version),
+          the LK level (CUDA kernel `lk_level` beside its plain version),
+          pyramidal LK on the grid or at arbitrary points, Shi-Tomasi
+          corners, stats; dense image primitives, the coefficient warp
+          (CUDA kernel `warp_bilinear` beside its plain version), Farneback
 nav       radial normalization (grid and dense) and the robust mask
 flow      grid LK flow over a frame pair or a clip (the pathfinder's loop);
-          dense Farneback flow over a pair or a clip
+          dense Farneback flow over a pair or a clip; the Shi-Tomasi +
+          forward-backward LK tracker over a pair or a clip. These entry
+          points run on the GPU unless the caller passes device="cpu".
 kernels   nvcc build + ctypes loader for csrc/*.cu
-convert   JAX-package state (numpy-convertible) -> this package's tensors
+convert   JAX-package state and configs (numpy-convertible) -> this
+          package's tensors and configs
 """
 
 __version__ = "0.1.0"

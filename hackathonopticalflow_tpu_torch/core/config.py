@@ -2,9 +2,11 @@
 
 Every field here has the JAX package's name, type and default;
 tests/test_torch_core.py holds them equal field by field. The constants
-come from the reference apps: LK window/criteria pathfinder_viewer.py:154-158,
-radial normalization :164-166, filter thresholds :173, grid step :16;
-Farneback DenseOF.py:147-157.
+come from the reference apps: LK window/criteria pathfinder_viewer.py:154-158
+(SparseOF.py:6-8 for the tracker's window 15), radial normalization
+:164-166, filter thresholds :173, grid step :16; Farneback
+DenseOF.py:147-157; Shi-Tomasi SparseOF.py:10-13; tracker
+SparseOF.py:15-16,37-38.
 """
 
 from __future__ import annotations
@@ -16,20 +18,29 @@ import dataclasses
 class LKParams:
     """Pyramidal Lucas-Kanade parameters (cv2.calcOpticalFlowPyrLK parity).
 
-    The port runs the static-grid production configuration (grid_step set,
-    grid_kernel "lanes", rescue_large with rescue_levels None, points_lanes
-    and compute_err off); ops/lk.py raises NotImplementedError for the
-    others. The JAX package's fields that only choose between TPU
-    implementations of that computation (use_pallas, pallas_block,
-    early_exit, lanes_packed, carve_dma) or serve unported paths
-    (slab_margin, iter_margin) are left out."""
+    Two paths are ported. With grid_step set, the static-grid production
+    configuration (grid_kernel "lanes", rescue_large with rescue_levels
+    None). Without it, arbitrary points (the tracker's) in one of two crop
+    geometries: points_lanes=True is the JAX package's use_pallas=True,
+    points_lanes=True (crops centred at each point's clipped init, margin
+    slab_margin or 8); points_lanes=False with slab_margin set is its v1
+    slab geometry (use_pallas=True without lanes, or its XLA slab path).
+    slab_margin=None without grid_step or points_lanes is the exact path,
+    which ops/lk.py rejects with NotImplementedError, as it does the other
+    unported options. The JAX package's fields that only choose between
+    TPU implementations of a computation (use_pallas, pallas_block,
+    early_exit, lanes_packed, carve_dma) or serve an unported path
+    (iter_margin) are left out."""
 
     win_size: tuple[int, int] = (45, 45)  # (w, h)
     max_level: int = 2
     max_iters: int = 10
     eps: float = 0.03
     min_eig_threshold: float = 1e-4
-    #: the tracker's arbitrary-point path (not ported)
+    #: crop margin of both arbitrary-point geometries (px at the level's
+    #: scale); None: 8 with points_lanes, the exact path without it
+    slab_margin: int | None = None
+    #: arbitrary points: init-centred crops (True) or the v1 slab (False)
     points_lanes: bool = False
     #: measurement-grid step: pts MUST be measurement_grid(h, w, grid_step)
     grid_step: int | None = None
@@ -40,7 +51,7 @@ class LKParams:
     #: crop margin at the top level, around each point's grid anchor (px
     #: at that level's scale)
     iter_margin_top: int = 32
-    #: per-point residual err at level 0 (not ported)
+    #: per-point residual err at level 0 (mean |window - template|)
     compute_err: bool = True
     grid_kernel: str = "lanes"
     #: crops below the top level centred at each point's coarse estimate
@@ -50,6 +61,39 @@ class LKParams:
     rescue_levels: int | None = None
     #: crop margin of the init-centred levels (px at the level's scale)
     rescue_margin: int = 20
+
+
+#: Tracker-flavoured LK (reference SparseOF.py:6-8): window 15, init-centred
+#: crops of margin 8 around each point's init.
+TRACKER_LK = LKParams(
+    win_size=(15, 15), max_level=2, max_iters=10, eps=0.03,
+    slab_margin=8, points_lanes=True,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureParams:
+    """Shi-Tomasi corner detection (cv2.goodFeaturesToTrack parity)."""
+
+    max_corners: int = 20
+    quality_level: float = 0.3
+    min_distance: float = 10.0
+    block_size: int = 7
+    #: NMS survivors considered by the greedy min-distance pass, strongest
+    #: first
+    max_candidates: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackerParams:
+    """Forward-backward LK trajectory tracker (reference SparseOF.py)."""
+
+    lk: LKParams = TRACKER_LK
+    trajectory_len: int = 40
+    detect_interval: int = 5
+    fb_max_dist: float = 1.0  # forward-backward gate, SparseOF.py:37-38
+    max_tracks: int = 256  # capacity of the track table
+    features: FeatureParams = FeatureParams()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,22 +1,27 @@
-// lk_level: one pyramid level of grid Lucas-Kanade for N points on Hopper.
+// lk_level: one pyramid level of Lucas-Kanade for N points on Hopper.
 //
-// Replaces three TPU (Pallas) kernels of the sparse pathfinder path:
+// Replaces four TPU (Pallas) kernels:
 //   - hackathonopticalflow_tpu/ops/lk_pallas3.py::lk_iterate_grid_lanes_packed
-//     (top level, anchor-centred crop of margin iter_margin_top);
+//     (grid top level, anchor-centred crop of margin iter_margin_top);
 //   - hackathonopticalflow_tpu/ops/lk_pallas3.py::lk_iterate_grid_lanes
-//     (lower levels, crop centred at the point's coarse estimate);
+//     (grid lower levels and the tracker's points, crop centred at the
+//     point's init);
+//   - hackathonopticalflow_tpu/ops/lk_pallas.py::lk_iterate (the v1
+//     per-point kernel: square slab, offsets from the clamped slab origin;
+//     the `v1` flag below);
 //   - hackathonopticalflow_tpu/ops/carve_pallas.py::gather_rects_panels
 //     (the per-point crop carve): here each block loads its own crop.
-// The TPU layouts (128-point lane blocks, masked-roll ladders, int8 bias,
-// u8-in-int32 packing, 8-px DMA origins) are Mosaic workarounds and are
-// not carried over.
+// The TPU layouts (128-point lane blocks, 32-point sublane blocks,
+// masked-roll ladders, int8 bias, u8-in-int32 packing, 8-px DMA origins)
+// are Mosaic workarounds and are not carried over.
 //
 // Design: one thread block per point. The block
 //   1. keeps the point's (3, win_h, win_w) template in registers (each
 //      thread owns at most MAXK pixels) and reduces the structure tensor;
-//   2. loads the point's (win_h+1+2m, win_w+1+2m) crop of the padded
-//      level plane into shared memory, its origin clamped into the plane
-//      as XLA's dynamic_slice clamps it (a dead point never faults);
+//   2. loads the point's crop of the padded level plane into shared
+//      memory, (win_h+1+2m, win_w+1+2m), or a square of max(win)+2m+2 in
+//      the v1 geometry, its origin clamped into the plane as XLA's
+//      dynamic_slice clamps it (a dead point never faults);
 //   3. runs the Gauss-Newton iterations out of shared memory and stops as
 //      soon as the point is inactive.
 // Every window value and template value lies on the 1/32 grid, so the
@@ -84,15 +89,16 @@ __global__ void __launch_bounds__(NT) lk_level_kernel(
     float* __restrict__ tl_out,          // (N, 2)
     unsigned char* __restrict__ status_out,     // (N,)
     int m, int win_w, int win_h, int level_w, int level_h, int max_iters,
-    float eps2, int is_level0, float min_eig_threshold) {
+    float eps2, int is_level0, float min_eig_threshold, int v1) {
   extern __shared__ float crop[];
   __shared__ double red[3][NW];
 
   const int pt = blockIdx.x;
   const int tid = threadIdx.x;
   const int npix = win_w * win_h;
-  const int cw = win_w + 1 + 2 * m;
-  const int ch = win_h + 1 + 2 * m;
+  const int side = max(win_w, win_h) + 2 * m + 2;  // the v1 slab
+  const int cw = v1 ? side : win_w + 1 + 2 * m;
+  const int ch = v1 ? side : win_h + 1 + 2 * m;
 
   // ---- 1. template (registers) + structure tensor ----
   float iw[MAXK], ixw[MAXK], iyw[MAXK];
@@ -129,12 +135,15 @@ __global__ void __launch_bounds__(NT) lk_level_kernel(
   bool status = status0[pt] != 0;
   if (is_level0 && bad) status = false;
   float tlx = tl0[2 * pt], tly = tl0[2 * pt + 1];
-  const int cbx = crop_org[2 * pt], cby = crop_org[2 * pt + 1];
 
   if (!bad) {
     // ---- 2. the point's crop (the gather_rects_panels carve) ----
-    const int ox0 = min(max(cbx + pad, 0), wp - cw);
-    const int oy0 = min(max(cby + pad, 0), hp - ch);
+    const int ox0 = min(max(crop_org[2 * pt] + pad, 0), wp - cw);
+    const int oy0 = min(max(crop_org[2 * pt + 1] + pad, 0), hp - ch);
+    // window offsets count from the unclamped origin, or in v1 from the
+    // clamped one (lk_pallas.py:106-107)
+    const int cbx = v1 ? ox0 - pad : crop_org[2 * pt];
+    const int cby = v1 ? oy0 - pad : crop_org[2 * pt + 1];
     for (int i = tid; i < cw * ch; i += NT) {
       const int r = i / cw, c = i - r * cw;
       crop[i] = plane[(size_t)(oy0 + r) * wp + ox0 + c];
@@ -202,17 +211,25 @@ extern "C" int lk_level_launch(
     const float* tl0, const int* crop_org, const unsigned char* status0,
     float* tl_out, unsigned char* status_out, int n, int m, int win_w,
     int win_h, int level_w, int level_h, int max_iters, float eps2,
-    int is_level0, float min_eig_threshold, void* stream) {
+    int is_level0, float min_eig_threshold, int v1, void* stream) {
   if (n == 0) return 0;
+  const size_t side = (size_t)((win_w > win_h ? win_w : win_h) + 2 * m + 2);
   const size_t smem =
-      sizeof(float) * (size_t)(win_w + 1 + 2 * m) * (size_t)(win_h + 1 + 2 * m);
-  cudaError_t err = cudaFuncSetAttribute(
-      lk_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+      v1 ? sizeof(float) * side * side
+         : sizeof(float) * (size_t)(win_w + 1 + 2 * m) * (size_t)(win_h + 1 + 2 * m);
+  // raise the kernel's shared-memory limit only when a launch needs more,
+  // so that launches captured into a CUDA graph make no such call
+  static size_t smem_limit = 0;
+  if (smem > smem_limit) {
+    cudaError_t err = cudaFuncSetAttribute(
+        lk_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_limit = smem;
+  }
   lk_level_kernel<<<n, NT, smem, (cudaStream_t)stream>>>(
       tmpl, plane, hp, wp, pad, tl0, crop_org, status0, tl_out, status_out, m,
       win_w, win_h, level_w, level_h, max_iters, eps2, is_level0,
-      min_eig_threshold);
+      min_eig_threshold, v1);
   return (int)cudaGetLastError();
 }
 

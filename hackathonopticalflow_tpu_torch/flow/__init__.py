@@ -1,2 +1,3 @@
-"""Grid LK flow and dense Farneback flow (ports of
-hackathonopticalflow_tpu/flow/lk_grid.py and flow/dense.py)."""
+"""Grid LK flow, dense Farneback flow and the trajectory tracker (ports of
+hackathonopticalflow_tpu/flow/lk_grid.py, flow/dense.py and
+flow/tracker.py)."""

@@ -7,19 +7,20 @@ import torch
 
 from ..core import FarnebackParams
 from ..ops.farneback import farneback, farneback_prepared, prepare_frame
+from .device import resolve_device
 
 
 def farneback_flow_video(
     frames: torch.Tensor,
     params: FarnebackParams = FarnebackParams(),
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """(T, H, W) grayscale clip (uint8 welcome) -> (T-1, H, W, 2) float32
-    flow of each consecutive pair. Frames move to `device` as they are
-    (default: where they are) and are cast there; each frame's prepared
+    flow of each consecutive pair. Frames move to `device` (the GPU unless
+    device="cpu") as they are and are cast there; each frame's prepared
     polynomial pyramid is built once and carried to the next pair, so the
     result equals per-pair farneback() exactly."""
-    device = frames.device if device is None else torch.device(device)
+    device = resolve_device(device)
     frames = frames.to(device)
     prev = prepare_frame(frames[0], params)
     flows = []
@@ -34,8 +35,10 @@ def farneback_flow(
     prev_gray: torch.Tensor,
     gray: torch.Tensor,
     params: FarnebackParams = FarnebackParams(),
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
-    """(..., H, W) grayscale pair -> (..., H, W, 2) dense flow. Leading
-    batch axes (pairs of several streams, say) run as one batch; each row
-    equals the single-pair result."""
-    return farneback(prev_gray, gray, params)
+    """(..., H, W) grayscale pair -> (..., H, W, 2) dense flow, on the GPU
+    unless device="cpu". Leading batch axes (pairs of several streams, say)
+    run as one batch; each row equals the single-pair result."""
+    device = resolve_device(device)
+    return farneback(prev_gray.to(device), gray.to(device), params)

@@ -20,6 +20,7 @@ from ..core import FilterParams, LKParams, NormalizeParams
 from ..nav.filter import robust_mask
 from ..nav.normalize import radial_normalize
 from ..ops.lk import prepare_frame, pyr_lk, pyr_lk_prepared
+from .device import resolve_device
 
 
 class GridFlowResult(NamedTuple):
@@ -120,12 +121,15 @@ def lk_grid_flow(
     lk: LKParams = LKParams(),
     norm: NormalizeParams = NormalizeParams(),
     filt: FilterParams = FilterParams(),
+    device: torch.device | str = "cuda",
 ) -> GridFlowResult:
-    """prev_gray/gray: (H, W) grayscale in [0, 255] (uint8 welcome: the
-    cast happens on the tensors' device); pts: (N, 2) on the same device."""
-    prev_gray = prev_gray.to(torch.float32)
-    gray = gray.to(torch.float32)
-    pts = pts.to(torch.float32)
+    """prev_gray/gray: (H, W) grayscale in [0, 255] (uint8 welcome: they
+    move to `device` as they are and are cast there); pts: (N, 2). Runs on
+    the GPU unless device="cpu"."""
+    device = resolve_device(device)
+    prev_gray = prev_gray.to(device).to(torch.float32)
+    gray = gray.to(device).to(torch.float32)
+    pts = pts.to(device=device, dtype=torch.float32)
     h, w = gray.shape
     # backward flow: track grid points from the current frame into the
     # previous one
@@ -139,13 +143,14 @@ def lk_grid_flow_video(
     lk: LKParams = LKParams(),
     norm: NormalizeParams = NormalizeParams(),
     filt: FilterParams = FilterParams(),
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> GridFlowResult:
     """Whole-clip form: (T, H, W) uint8 frames -> GridFlowResult batched
-    over the T-1 steps. Frames move to `device` as uint8 (default: where
-    they are) and are cast there; each frame's prepared pyramid is built
-    once and carried to the next step as the previous frame."""
-    device = frames.device if device is None else torch.device(device)
+    over the T-1 steps. Frames move to `device` (the GPU unless
+    device="cpu") as uint8 and are cast there; each frame's prepared
+    pyramid is built once and carried to the next step as the previous
+    frame."""
+    device = resolve_device(device)
     frames = frames.to(device)
     pts = pts.to(device=device, dtype=torch.float32)
     h, w = frames.shape[-2:]

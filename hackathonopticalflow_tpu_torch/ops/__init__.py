@@ -1,3 +1,4 @@
-"""Frame preparation, grid templates, the LK level kernel, pyramidal LK,
-statistics, dense image primitives, the coefficient warp kernel and
-Farneback (ports of hackathonopticalflow_tpu/ops/)."""
+"""Frame preparation, grid templates, the window kernel, the LK level
+kernel, pyramidal LK, Shi-Tomasi corners, statistics, dense image
+primitives, the coefficient warp kernel and Farneback (ports of
+hackathonopticalflow_tpu/ops/)."""

@@ -1,12 +1,25 @@
-"""Pyramidal grid Lucas-Kanade (port of hackathonopticalflow_tpu/ops/lk.py,
-the static-grid production configuration).
+"""Pyramidal Lucas-Kanade (port of hackathonopticalflow_tpu/ops/lk.py).
 
-The slice ported here is the sparse pathfinder's: params.grid_step set,
-the lanes grid kernel, init-centred crops at every level below the top
-(rescue_large=True, rescue_levels=None), compute_err=False. At the top
-level each point's crop is anchored at its grid position with margin
-iter_margin_top; below it, at the point's clipped coarse estimate with
-margin rescue_margin. Every level runs `ops/lk_level.py::lk_level`.
+Two paths, chosen by params.grid_step; every level runs
+`ops/lk_level.py::lk_level`.
+
+- grid_step set: the sparse pathfinder's static-grid production
+  configuration (the lanes grid kernel, init-centred crops at every level
+  below the top: rescue_large=True, rescue_levels=None). Templates come
+  from the grid extractor; at the top level each point's crop is anchored
+  at its grid position with margin iter_margin_top, below it at the
+  point's clipped coarse estimate with margin rescue_margin.
+- grid_step None: arbitrary points (the tracker's). Templates are
+  bilinear windows at each point (`extract_patches_multi`, the
+  `patch_bilinear` kernel on the GPU); points whose template window lies
+  outside the frame get zero templates, which the level's spectral gate
+  rejects. With points_lanes, crops are centred at each point's init,
+  clipped to [-(win+2), size+2] (JAX use_pallas + points_lanes); without,
+  the v1 slab geometry (JAX lk_iterate, or its XLA slab path). The crop
+  margin is slab_margin (8 if None with points_lanes).
+
+With compute_err, level 0 also gives OpenCV's err: the mean |window -
+template| at each point's final position, 0 where status is false.
 Other configurations raise NotImplementedError naming their ROADMAP item.
 """
 
@@ -21,14 +34,14 @@ from ..core import LKParams, measurement_grid
 from .deriv import scharr_deriv
 from .image import reflect101_pad
 from .lk_level import lk_level
-from .patch import extract_grid_templates
+from .patch import extract_grid_templates, extract_patches, extract_patches_multi
 from .pyramid import build_pyramid
 
 
 class LKResult(NamedTuple):
     next_pts: torch.Tensor  # (N, 2) float32
     status: torch.Tensor  # (N,) bool — False where tracking failed at level 0
-    err: torch.Tensor  # (N,) float32 — zeros (compute_err is not ported)
+    err: torch.Tensor  # (N,) float32 — mean |window residual| at level 0 (zeros without compute_err)
 
 
 class PreparedFrame(NamedTuple):
@@ -41,16 +54,26 @@ class PreparedFrame(NamedTuple):
 
 
 def _frame_pad(params: LKParams) -> int:
-    """Window-sampling border pad of the production grid path (the JAX
-    package's value for it)."""
+    """Window-sampling border pad (the JAX package's value): the window
+    plus 2; the grid path's slab margins and init-centred crops; the
+    init-centred crops of points_lanes (26 px for TRACKER_LK; 17 for its
+    v1 form)."""
     win_w, win_h = params.win_size
-    half = (max(win_w, win_h) - 1) // 2
-    m = max(params.slab_margin_x, params.slab_margin_y, params.iter_margin_top)
-    return max(
-        max(win_w, win_h) + 2,
-        half + m + 2,
-        _init_centered_pad(win_w, win_h, params.rescue_margin),
-    )
+    pad = max(win_w, win_h) + 2
+    if params.grid_step is not None:
+        half = (max(win_w, win_h) - 1) // 2
+        m = max(params.slab_margin_x, params.slab_margin_y, params.iter_margin_top)
+        pad = max(pad, half + m + 2)
+        if params.rescue_large:
+            pad = max(pad, _init_centered_pad(win_w, win_h, params.rescue_margin))
+    if params.points_lanes:
+        pad = max(pad, _init_centered_pad(win_w, win_h, _point_margin(params)))
+    return pad
+
+
+def _point_margin(params: LKParams) -> int:
+    """Crop margin of the arbitrary-point path."""
+    return params.slab_margin if params.slab_margin is not None else 8
 
 
 def _init_centered_pad(win_w: int, win_h: int, margin: int) -> int:
@@ -63,20 +86,20 @@ def _init_centered_pad(win_w: int, win_h: int, margin: int) -> int:
 
 
 def _check_slice(params: LKParams) -> None:
-    """Raise for configurations outside the ported slice."""
+    """Raise for configurations outside the ported paths."""
     todo = "is not ported yet: ROADMAP.md, queue 1, item"
-    if params.compute_err:
-        raise NotImplementedError(f"compute_err=True {todo} 2")
     if params.grid_step is None:
-        raise NotImplementedError(f"grid_step=None (the exact _level_lk path) {todo} 3")
+        if not params.points_lanes and params.slab_margin is None:
+            raise NotImplementedError(
+                f"grid_step=None with slab_margin=None (the exact _level_lk path) {todo} 3"
+            )
+        return
     if params.grid_kernel != "lanes":
         raise NotImplementedError(f"grid_kernel={params.grid_kernel!r} {todo} 3")
     if not params.rescue_large or params.rescue_levels is not None:
         raise NotImplementedError(
             f"rescue_large=False / an integer rescue_levels {todo} 4"
         )
-    if params.points_lanes:
-        raise NotImplementedError(f"points_lanes (the tracker's path) {todo} 1")
 
 
 def prepare_frame(img: torch.Tensor, params: LKParams) -> PreparedFrame:
@@ -145,6 +168,22 @@ def level_inputs(
     return (tmpl, next_prep.img_p[level], pad, tl0.contiguous(), crop_org), statics
 
 
+def _level0_err(
+    plane_p: torch.Tensor,
+    next_tl: torch.Tensor,
+    iw: torch.Tensor,
+    status: torch.Tensor,
+    pad: int,
+    params: LKParams,
+) -> torch.Tensor:
+    """OpenCV's err: mean |window at next_tl - template image iw|, 0 where
+    status is false (JAX ops/lk.py:364-369, 645-653, 683-690)."""
+    win_w, win_h = params.win_size
+    jw = extract_patches(plane_p, next_tl + float(pad), win_h, win_w)
+    err = (jw - iw).abs().sum(dim=(1, 2)) / (win_w * win_h)
+    return torch.where(status, err, torch.zeros_like(err))
+
+
 def _level_lk_static_grid(
     prev_prep: PreparedFrame,
     next_prep: PreparedFrame,
@@ -153,14 +192,91 @@ def _level_lk_static_grid(
     status: torch.Tensor,
     level: int,
     params: LKParams,
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """One level of the production grid path. Returns (next_center,
-    status)."""
+    status, err), err None except at level 0 with compute_err."""
     args, statics = level_inputs(
         prev_prep, next_prep, grid_xy, next_center, level, params
     )
     next_tl, status = lk_level(*args, status, **statics)
-    return next_tl + _halfwin(params, next_tl.device), status
+    err = None
+    if level == 0 and params.compute_err:
+        tmpl, plane_p, pad = args[:3]
+        err = _level0_err(plane_p, next_tl, tmpl[:, 0], status, pad, params)
+    return next_tl + _halfwin(params, next_tl.device), status, err
+
+
+def point_level_inputs(
+    prev_prep: PreparedFrame,
+    next_prep: PreparedFrame,
+    pts: torch.Tensor,
+    next_center: torch.Tensor,
+    level: int,
+    params: LKParams,
+) -> tuple[tuple, dict, torch.Tensor]:
+    """The arguments of `lk_level` (all but status0) for one level of the
+    arbitrary-point path: templates at pts / 2^level in `prev_prep`
+    (zeroed where the template window lies outside the frame), search in
+    `next_prep` from `next_center`. Returns ((tmpl, plane_p, pad, tl0,
+    crop_org), statics, template image) — the last unzeroed, for err."""
+    win_w, win_h = params.win_size
+    pad = _frame_pad(params)
+    halfwin = _halfwin(params, pts.device)
+    img_prev_p = prev_prep.img_p[level]
+    h = img_prev_p.shape[0] - 2 * pad
+    w = img_prev_p.shape[1] - 2 * pad
+
+    tmpl_tl = pts * (1.0 / (1 << level)) - halfwin
+    it = torch.floor(tmpl_tl)
+    oob_tmpl = (it[:, 0] < -win_w) | (it[:, 0] >= w) | (it[:, 1] < -win_h) | (it[:, 1] >= h)
+    planes = torch.stack([img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]])
+    tmpl = extract_patches_multi(planes, tmpl_tl + float(pad), win_h, win_w, quantize=True)
+    # the spectral gate rejects a zero template: at level 0 its status dies
+    tmpl_k = torch.where(oob_tmpl[:, None, None, None], torch.zeros_like(tmpl), tmpl)
+
+    m = _point_margin(params)
+    tl0 = next_center - halfwin
+    if params.points_lanes:
+        # init-centred crop; wild inits are clipped just enough to keep the
+        # crop inside the padded plane (they stay beyond the oob gate)
+        geometry = "centred"
+        tl0 = torch.stack(
+            [
+                torch.clamp(tl0[:, 0], -(win_w + 2.0), w + 2.0),
+                torch.clamp(tl0[:, 1], -(win_h + 2.0), h + 2.0),
+            ],
+            dim=-1,
+        )
+    else:
+        geometry = "v1"
+    crop_org = torch.floor(tl0).to(torch.int32) - m
+    statics = dict(
+        m=m, win_w=win_w, win_h=win_h, level_w=w, level_h=h,
+        max_iters=params.max_iters, eps2=float(max(params.eps, 0.0) ** 2),
+        is_level0=(level == 0), min_eig_threshold=params.min_eig_threshold,
+        geometry=geometry,
+    )
+    args = (tmpl_k, next_prep.img_p[level], pad, tl0.contiguous(), crop_org)
+    return args, statics, tmpl[:, 0]
+
+
+def _level_lk(
+    prev_prep: PreparedFrame,
+    next_prep: PreparedFrame,
+    pts: torch.Tensor,
+    next_center: torch.Tensor,
+    status: torch.Tensor,
+    level: int,
+    params: LKParams,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """One level of the arbitrary-point path. Returns (next_center,
+    status, err), err None except at level 0 with compute_err."""
+    args, statics, iw = point_level_inputs(prev_prep, next_prep, pts, next_center, level, params)
+    next_tl, status = lk_level(*args, status, **statics)
+    err = None
+    if level == 0 and params.compute_err:
+        err = _level0_err(args[1], next_tl, iw, status, args[2], params)
+    return next_tl + _halfwin(params, next_tl.device), status, err
 
 
 def pyr_lk(
@@ -170,7 +286,8 @@ def pyr_lk(
     params: LKParams = LKParams(),
 ) -> LKResult:
     """Track pts (N, 2) [x, y] from img_prev to img_next ((H, W) grayscale
-    in [0, 255]). pts must be measurement_grid(H, W, params.grid_step)."""
+    in [0, 255]). With params.grid_step set, pts must be
+    measurement_grid(H, W, params.grid_step)."""
     prep_prev = prepare_frame(img_prev, params)
     prep_next = prepare_frame(img_next, params)
     return pyr_lk_prepared(prep_prev, prep_next, pts, params)
@@ -184,25 +301,32 @@ def pyr_lk_prepared(
 ) -> LKResult:
     """pyr_lk over frames prepared with prepare_frame (the video form)."""
     _check_slice(params)
-    pad = _frame_pad(params)
-    h = prep_prev.img_p[0].shape[0] - 2 * pad
-    w = prep_prev.img_p[0].shape[1] - 2 * pad
-    gpts = measurement_grid(h, w, params.grid_step)
-    if gpts.shape[0] != pts.shape[0]:
-        raise ValueError(
-            f"pts must be measurement_grid({h}, {w}, {params.grid_step}): "
-            f"expected {gpts.shape[0]} points, got {pts.shape[0]}"
-        )
-    grid_xy = (np.unique(gpts[:, 0]).astype(int), np.unique(gpts[:, 1]).astype(int))
-
     pts = pts.to(torch.float32)
+    if params.grid_step is not None:
+        pad = _frame_pad(params)
+        h = prep_prev.img_p[0].shape[0] - 2 * pad
+        w = prep_prev.img_p[0].shape[1] - 2 * pad
+        gpts = measurement_grid(h, w, params.grid_step)
+        if gpts.shape[0] != pts.shape[0]:
+            raise ValueError(
+                f"pts must be measurement_grid({h}, {w}, {params.grid_step}): "
+                f"expected {gpts.shape[0]} points, got {pts.shape[0]}"
+            )
+        grid_xy = (np.unique(gpts[:, 0]).astype(int), np.unique(gpts[:, 1]).astype(int))
+
+        def level_step(center, status, level):
+            return _level_lk_static_grid(prep_prev, prep_next, grid_xy, center, status, level, params)
+    else:
+
+        def level_step(center, status, level):
+            return _level_lk(prep_prev, prep_next, pts, center, status, level, params)
+
     status = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
     next_center = pts * (1.0 / (1 << params.max_level))
     for level in range(params.max_level, -1, -1):
         if level != params.max_level:
             next_center = next_center * 2.0
-        next_center, status = _level_lk_static_grid(
-            prep_prev, prep_next, grid_xy, next_center, status, level, params
-        )
-    err = torch.zeros(pts.shape[0], dtype=torch.float32, device=pts.device)
+        next_center, status, err = level_step(next_center, status, level)
+    if err is None:
+        err = torch.zeros(pts.shape[0], dtype=torch.float32, device=pts.device)
     return LKResult(next_pts=next_center, status=status, err=err)

@@ -1,21 +1,29 @@
-"""One pyramid level of grid LK for N points: the CUDA kernel `lk_level`
+"""One pyramid level of LK for N points: the CUDA kernel `lk_level`
 (csrc/lk_level.cu) and its plain PyTorch version `lk_level_reference`.
 
-Port of the level iteration that three TPU kernels carry in the JAX
-package: ops/lk_pallas3.py::lk_iterate_grid_lanes_packed (top level),
-ops/lk_pallas3.py::lk_iterate_grid_lanes (lower levels) and the crop
-carve ops/carve_pallas.py::gather_rects_panels. Semantics (lk_pallas3.py
-body): per point,
+Port of the level iteration that four TPU kernels carry in the JAX
+package: ops/lk_pallas3.py::lk_iterate_grid_lanes_packed (grid top level),
+ops/lk_pallas3.py::lk_iterate_grid_lanes (grid lower levels, and the
+tracker's arbitrary points with points_lanes), ops/lk_pallas.py::lk_iterate
+(the v1 per-point kernel) and the crop carve
+ops/carve_pallas.py::gather_rects_panels. Semantics (lk_pallas3.py and
+lk_pallas.py bodies): per point,
 
 - structure tensor A from the template gradients, OpenCV's fixed-point
   scale (x 1/1024), spectral gate minEig < threshold or det < FLT_EPSILON;
   a bad template kills status at level 0 and only deactivates the point
   above it;
-- a crop of (win+1+2m) px per axis at `crop_org` (unpadded [x, y]) of the
-  padded next-level plane; each iteration samples the bilinear window at
-  the window's integer position clamped to [crop_org, crop_org + 2m]
-  (the freeze envelope) with the fraction of the unclamped position, and
-  quantizes it to the 1/32 W_BITS grid;
+- a crop of the padded next-level plane at the padded origin
+  `crop_org + pad`, clamped into the plane as XLA's dynamic_slice clamps
+  it. Each iteration samples the bilinear window at the window's integer
+  position ix, offset into the crop by clamp(ix - ref, 0, 2m) (the freeze
+  envelope), with the fraction of the unclamped position, and quantizes it
+  to the 1/32 W_BITS grid. Two crop geometries:
+  "centred" (lanes kernels): (win+1+2m) px per axis, ref = crop_org, the
+  unclamped origin (the callers' pads keep live crops unclamped);
+  "v1" (lk_iterate): a square of max(win)+2m+2 px, ref = the CLAMPED
+  origin minus pad (lk_pallas.py:106-107), so points whose slab was
+  clamped at the plane's edge sample the pixels the v1 kernel samples;
 - Gauss-Newton step, |delta|^2 <= eps^2 convergence, the oscillation
   damper (j > 0; convergence wins), oob (floor outside
   [-win, level_size)) deactivates and kills status at level 0 only;
@@ -24,6 +32,7 @@ body): per point,
 The A and b sums are taken in float64: every term lies on the 1/1024 grid
 and is exact there, so the sums are exact and the kernel, which sums in
 double too, reproduces this version bit for bit in any summation order.
+(JAX's v1 kernel sums in float32, so the port meets it to a tolerance.)
 """
 
 from __future__ import annotations
@@ -46,6 +55,19 @@ def _sum64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x.double() * y.double()).sum(dim=(1, 2)).float()
 
 
+GEOMETRIES = ("centred", "v1")
+
+
+def crop_size(geometry: str, m: int, win_w: int, win_h: int) -> tuple[int, int]:
+    """(width, height) of a point's crop in `geometry`."""
+    if geometry == "centred":
+        return win_w + 1 + 2 * m, win_h + 1 + 2 * m
+    if geometry == "v1":
+        s = max(win_w, win_h) + 2 * m + 2
+        return s, s
+    raise ValueError(f"geometry must be one of {GEOMETRIES}, got {geometry!r}")
+
+
 def lk_level_reference(
     tmpl: torch.Tensor,
     plane_p: torch.Tensor,
@@ -63,9 +85,14 @@ def lk_level_reference(
     eps2: float,
     is_level0: bool,
     min_eig_threshold: float,
+    geometry: str = "centred",
+    stats: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `lk_level`, batched over points; same
-    arguments and results."""
+    arguments and results. If `stats` is a dict, it receives the work the
+    kernel does on these inputs: "good" points (templates past the
+    spectral gate; each loads a crop) and "iterations" (point-iterations
+    that sample a window), read from the device."""
     dev = tmpl.device
     iw, ixw, iyw = tmpl[:, 0], tmpl[:, 1], tmpl[:, 2]
     a11 = _sum64(ixw, ixw) * _CV_SCALE
@@ -81,16 +108,23 @@ def lk_level_reference(
 
     status = status0 & ~bad if is_level0 else status0.clone()
     active = ~bad
+    if stats is not None:
+        stats["good"] = int(active.sum())
     tlx, tly = tl0[:, 0].clone(), tl0[:, 1].clone()
     pdx = torch.zeros_like(tlx)
     pdy = torch.zeros_like(tly)
 
-    # crop origin in the padded plane, clamped as dynamic_slice clamps it
+    # crop origin in the padded plane, clamped as dynamic_slice clamps it;
+    # window offsets count from the unclamped origin (centred) or from the
+    # clamped one (v1)
     hp, wp = plane_p.shape
-    cw, ch = win_w + 1 + 2 * m, win_h + 1 + 2 * m
-    cbx, cby = crop_org[:, 0], crop_org[:, 1]
-    ox0 = torch.clamp(cbx + pad, 0, wp - cw)
-    oy0 = torch.clamp(cby + pad, 0, hp - ch)
+    cw, ch = crop_size(geometry, m, win_w, win_h)
+    ox0 = torch.clamp(crop_org[:, 0] + pad, 0, wp - cw)
+    oy0 = torch.clamp(crop_org[:, 1] + pad, 0, hp - ch)
+    if geometry == "v1":
+        cbx, cby = ox0 - pad, oy0 - pad
+    else:
+        cbx, cby = crop_org[:, 0], crop_org[:, 1]
     rr = torch.arange(win_h + 1, device=dev)
     cc = torch.arange(win_w + 1, device=dev)
 
@@ -101,6 +135,8 @@ def lk_level_reference(
         if is_level0:
             status = status & ~(active & oob)
         active = active & ~oob
+        if stats is not None:
+            stats["iterations"] = stats.get("iterations", 0) + int(active.sum())
 
         ax = (tlx - ixf)[:, None, None]
         ay = (tly - iyf)[:, None, None]
@@ -157,6 +193,7 @@ def _lib():
         fn.argtypes = [
             p, p, i, i, i, p, p, p, p, p,  # tmpl .. status_out
             i, i, i, i, i, i, i, f, i, f,  # n .. min_eig_threshold
+            i,  # v1 geometry
             p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -182,6 +219,7 @@ def lk_level(
     eps2: float,
     is_level0: bool,
     min_eig_threshold: float,
+    geometry: str = "centred",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """LK iterations of one pyramid level.
 
@@ -190,6 +228,7 @@ def lk_level(
     tl0: (N, 2) f32 initial window top-lefts [x, y] (unpadded).
     crop_org: (N, 2) i32 unpadded crop origins [x, y].
     status0: (N,) bool.
+    geometry: "centred" or "v1" (module docstring).
     Returns (top-lefts (N, 2) f32, status (N,) bool).
 
     CPU tensors run `lk_level_reference`; CUDA tensors launch the kernel
@@ -204,12 +243,13 @@ def lk_level(
     _check("crop_org", crop_org, torch.int32, (n, 2), dev)
     _check("status0", status0, torch.bool, (n,), dev)
     hp, wp = plane_p.shape
-    if hp < win_h + 1 + 2 * m or wp < win_w + 1 + 2 * m:
-        raise ValueError(f"plane {hp}x{wp} smaller than the crop (m={m})")
+    cw, ch = crop_size(geometry, m, win_w, win_h)
+    if hp < ch or wp < cw:
+        raise ValueError(f"plane {hp}x{wp} smaller than the {ch}x{cw} crop")
     statics = dict(
         m=m, win_w=win_w, win_h=win_h, level_w=level_w, level_h=level_h,
         max_iters=max_iters, eps2=eps2, is_level0=is_level0,
-        min_eig_threshold=min_eig_threshold,
+        min_eig_threshold=min_eig_threshold, geometry=geometry,
     )
     if dev.type == "cpu":
         return lk_level_reference(tmpl, plane_p, pad, tl0, crop_org, status0, **statics)
@@ -228,7 +268,7 @@ def lk_level(
             tl0.data_ptr(), crop_org.data_ptr(), status0.data_ptr(),
             tl_out.data_ptr(), st_out.data_ptr(),
             n, m, win_w, win_h, level_w, level_h, max_iters, eps2,
-            int(is_level0), min_eig_threshold, stream,
+            int(is_level0), min_eig_threshold, int(geometry == "v1"), stream,
         )
     if rc != 0:
         raise RuntimeError(f"lk_level launch failed: cudaError {rc}")

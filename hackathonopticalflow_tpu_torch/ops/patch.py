@@ -1,15 +1,39 @@
-"""Template windows at the static measurement grid (port of what
+"""Bilinear window sampling: at arbitrary points (port of
+hackathonopticalflow_tpu/ops/patch.py's extract_patches,
+extract_patches_multi and blend_bilinear, through the `patch_bilinear`
+kernel) and at the static measurement grid (port of what
 hackathonopticalflow_tpu/ops/grid_patch.py::extract_grid_templates_lanes
-computes; the JAX package builds it in XLA, not Pallas).
+computes; the JAX package builds that one in XLA, not Pallas).
 
-The TPU layouts (128-lane padding, points on lanes, i16 x32 storage) are
-dropped: the result is (N, 3, win_h, win_w) float32 in the grid's x-major
-point order, on the 1/32 W_BITS grid that the i16 stream encodes."""
+The TPU layouts (128-lane padding, points on lanes, i16 x32 storage, DMA
+panels) are dropped: windows are (N, [C,] h, w) float32."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .patch_bilinear import blend_bilinear, patch_bilinear
+
+__all__ = ["blend_bilinear", "extract_grid_templates", "extract_patches", "extract_patches_multi"]
+
+
+def extract_patches(img: torch.Tensor, top_left: torch.Tensor, size_h: int, size_w: int) -> torch.Tensor:
+    """(N, size_h, size_w) windows of img (H, W) float32 at fractional
+    top-lefts (N, 2) [x, y]. img is padded by the caller so that every
+    window lies inside; out-of-range origins clamp as XLA's dynamic_slice
+    clamps them. CPU tensors take the plain version, CUDA tensors the
+    `patch_bilinear` kernel."""
+    return patch_bilinear(img[None], top_left.contiguous(), size_h, size_w, False)[:, 0]
+
+
+def extract_patches_multi(
+    imgs: torch.Tensor, top_left: torch.Tensor, size_h: int, size_w: int, quantize: bool = False
+) -> torch.Tensor:
+    """(N, C, size_h, size_w) windows of a (C, H, W) stack at shared
+    fractional top-lefts; with `quantize`, on the 1/32 W_BITS grid (the
+    JAX package's _fix of the LK templates, fused into the kernel)."""
+    return patch_bilinear(imgs.contiguous(), top_left.contiguous(), size_h, size_w, quantize)
 
 
 def _axis_bases(coords: np.ndarray, level: int, off: float):

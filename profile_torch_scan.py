@@ -1,29 +1,32 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's 1080p sparse scan or 720p dense scan, on
-one CUDA GPU.
+"""Where the time goes in the port's 1080p sparse scan, 720p dense scan or
+1080p tracker scan, on one CUDA GPU.
 
 Run from the repository root:
 
-    python3 profile_torch_scan.py [--path sparse|dense] [--pairs 8] [--out PATH]
+    python3 profile_torch_scan.py [--path sparse|dense|tracker] [--pairs 8] [--out PATH]
 
-Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip at the
-production params: `lk_grid_flow_video` (--path sparse, the default) or
-`farneback_flow_video` at the reference FarnebackParams (--path dense).
-It prints:
+Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip:
+`lk_grid_flow_video` at the production params (--path sparse, the
+default), `farneback_flow_video` at the reference FarnebackParams (--path
+dense) or `track_video` at TrackerParams() after a seeding step on the
+first frame (--path tracker; a step per pair). It prints:
 - the GPU's name and power limit (nvidia-smi);
 - the scan's wall time without the profiler (best of 3) and the device
   time that torch.profiler records over one more scan, so the device's
   busy share is device time / wall time;
 - host API calls per pair (kernel launches, stream syncs, memcpys);
-- device time by kind of kernel (lk_level, warp_bilinear, index/gather,
-  elementwise, ...) and the top device ops;
+- device time by kind of kernel (lk_level, warp_bilinear,
+  patch_bilinear, index/gather, elementwise, ...) and the top device ops;
 - stage times from CUDA events for one pair: sparse: prepare_frame,
   level_inputs and lk_level per level, pyr_lk_prepared, _post_lk; dense:
   prepare_frame, update_matrices and the solve per level,
-  farneback_prepared.
+  farneback_prepared; tracker: prepare_frame, one pyr_lk_prepared,
+  good_features_to_track, _detect_mask, and track_step_prepared on a step
+  without and with detection.
 The full profiler tables go to --out (default
-build/profile_torch_scan.txt, build/profile_torch_scan_dense.txt for the
-dense path); the last line is the summary as one JSON object.
+build/profile_torch_scan[_dense|_tracker].txt); the last line is the
+summary as one JSON object.
 """
 
 from __future__ import annotations
@@ -46,16 +49,19 @@ from hackathonopticalflow_tpu_torch.core import (
     FilterParams,
     LKParams,
     NormalizeParams,
+    TrackerParams,
     measurement_grid,
 )
-from hackathonopticalflow_tpu_torch.flow import dense, lk_grid
+from hackathonopticalflow_tpu_torch.flow import dense, lk_grid, tracker
 from hackathonopticalflow_tpu_torch.ops import farneback as fb
+from hackathonopticalflow_tpu_torch.ops import features
 from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
 
 KINDS = (
     ("lk_level", ("lk_level",)),
     ("warp_bilinear", ("warp_bilinear",)),
+    ("patch_bilinear", ("patch_bilinear",)),
     ("index/gather", ("index", "gather")),
     ("sort", ("sort",)),
     ("elementwise", ("elementwise", "reduce")),
@@ -78,7 +84,7 @@ def sparse_setup(dev, pairs: int):
     pts = torch.from_numpy(measurement_grid(H, W, params.grid_step)).to(dev)
 
     def scan():
-        return lk_grid.lk_grid_flow_video(clip, pts, lk=params)
+        return lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev)
 
     def stages():
         """One pair (backward: template from frame 1, search in 0)."""
@@ -115,7 +121,7 @@ def dense_setup(dev, pairs: int):
     clip = make_clip(dev, DENSE_H, DENSE_W, pairs + 1, DENSE_CELL)
 
     def scan():
-        return dense.farneback_flow_video(clip, params)
+        return dense.farneback_flow_video(clip, params, device=dev)
 
     def stages():
         """One pair; each level at the flow the scan reaches there."""
@@ -139,14 +145,51 @@ def dense_setup(dev, pairs: int):
     return scan, stages, "720p"
 
 
+def tracker_setup(dev, pairs: int):
+    """The tracker over `pairs` 1080p steps and its stage timer."""
+    params = TrackerParams()
+    clip = make_clip(dev)[: pairs + 1]
+    s0 = tracker.track_step(tracker.init_tracker(params), clip[0], clip[0], params, device=dev)
+
+    def scan():
+        return tracker.track_video(clip, params, s0, device=dev)
+
+    def stages():
+        """One step from the seeded state (frame_idx 1: no detection) and
+        the same step with detection."""
+        prev = lk_mod.prepare_frame(clip[0], params.lk)
+        cur = lk_mod.prepare_frame(clip[1], params.lk)
+        gray = clip[1].to(torch.float32)
+        heads = tracker._heads(s0)
+        out = {"prepare_frame": cuda_ms(lambda: lk_mod.prepare_frame(clip[1], params.lk), 10)}
+        out["pyr_lk_prepared"] = cuda_ms(lambda: lk_mod.pyr_lk_prepared(prev, cur, heads, params.lk), 10)
+        out["_detect_mask"] = cuda_ms(lambda: tracker._detect_mask(heads, s0.alive, H, W), 10)
+        out["good_features_to_track"] = cuda_ms(
+            lambda: features.good_features_to_track(gray, params.features), 10
+        )
+        out["track_step_prepared"] = cuda_ms(
+            lambda: tracker.track_step_prepared(s0, prev, cur, gray, params), 10
+        )
+        s5 = s0._replace(frame_idx=params.detect_interval)
+        out["track_step_prepared with detection"] = cuda_ms(
+            lambda: tracker.track_step_prepared(s5, prev, cur, gray, params), 10
+        )
+        return out
+
+    return scan, stages, "1080p"
+
+
+SETUPS = {"sparse": sparse_setup, "dense": dense_setup, "tracker": tracker_setup}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sparse", "dense"), default="sparse")
+    ap.add_argument("--path", choices=tuple(SETUPS), default="sparse")
     ap.add_argument("--pairs", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.out is None:
-        suffix = "" if args.path == "sparse" else "_dense"
+        suffix = "" if args.path == "sparse" else f"_{args.path}"
         args.out = Path(f"build/profile_torch_scan{suffix}.txt")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_scan: needs a CUDA GPU")
@@ -156,8 +199,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    setup = sparse_setup if args.path == "sparse" else dense_setup
-    scan, stages_fn, size = setup(dev, args.pairs)
+    scan, stages_fn, size = SETUPS[args.path](dev, args.pairs)
 
     scan()  # builds the kernel, warms the caching allocator
     walls = []

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from hackathonopticalflow_tpu import core as jcore
+from hackathonopticalflow_tpu.core.config import TRACKER_LK as J_TRACKER_LK
 from hackathonopticalflow_tpu_torch import core as tcore
 
 
@@ -14,22 +15,46 @@ from hackathonopticalflow_tpu_torch import core as tcore
 # serve paths the port does not have (warp_group_rows: Pallas tile geometry)
 JAX_ONLY = {
     "LKParams": {"use_pallas", "pallas_block", "early_exit", "lanes_packed",
-                 "carve_dma", "slab_margin", "iter_margin"},
+                 "carve_dma", "iter_margin"},
     "NormalizeParams": set(),
     "FilterParams": set(),
     "FarnebackParams": {"warp_group_rows"},
+    "FeatureParams": set(),
+    "TrackerParams": set(),
 }
+
+
+def _fields(obj, cls_name):
+    """(name, value) of a config's fields without the JAX-only ones,
+    nested configs expanded the same way."""
+    out = []
+    for f in dataclasses.fields(obj):
+        if f.name in JAX_ONLY[cls_name]:
+            continue
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            v = _fields(v, type(v).__name__)
+        out.append((f.name, v))
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(JAX_ONLY))
 def test_params_match_jax(name):
     jcls, tcls = getattr(jcore, name), getattr(tcore, name)
-    jf = [(f.name, f.type, f.default) for f in dataclasses.fields(jcls)
-          if f.name not in JAX_ONLY[name]]
-    tf = [(f.name, f.type, f.default) for f in dataclasses.fields(tcls)]
+    jf = [(f.name, f.type) for f in dataclasses.fields(jcls) if f.name not in JAX_ONLY[name]]
+    tf = [(f.name, f.type) for f in dataclasses.fields(tcls)]
     assert tf == jf
     assert {f.name for f in dataclasses.fields(jcls)} - {f[0] for f in tf} == JAX_ONLY[name]
+    assert _fields(tcls(), name) == _fields(jcls(), name)
     assert tcls.__dataclass_params__.frozen
+
+
+def test_tracker_lk_matches_jax():
+    """TRACKER_LK field by field (the port's points_lanes means JAX's
+    use_pallas + points_lanes)."""
+    assert J_TRACKER_LK.use_pallas and J_TRACKER_LK.points_lanes
+    assert _fields(tcore.TRACKER_LK, "LKParams") == _fields(J_TRACKER_LK, "LKParams")
+    assert tcore.TrackerParams().lk == tcore.TRACKER_LK
 
 
 def test_production_lk_params_match_jax():

@@ -7,17 +7,30 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
-from hackathonopticalflow_tpu_torch.core import FarnebackParams, LKParams, measurement_grid
+from chip_smoke import tracker_points
+
+from hackathonopticalflow_tpu_torch.core import (
+    TRACKER_LK,
+    FarnebackParams,
+    FeatureParams,
+    LKParams,
+    TrackerParams,
+    measurement_grid,
+)
 from hackathonopticalflow_tpu_torch.flow import dense as tdense
+from hackathonopticalflow_tpu_torch.flow import tracker as ttr
 from hackathonopticalflow_tpu_torch.ops import farneback as tfb
 from hackathonopticalflow_tpu_torch.ops import lk as tlk
+from hackathonopticalflow_tpu_torch.ops import patch as tpatch
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 
 PARAMS = LKParams(grid_step=30, compute_err=False)
@@ -94,9 +107,69 @@ def test_farneback_video_kernel_path_matches_plain(cuda_device):
     params = FarnebackParams()
     clip = torch.from_numpy(np.stack(_frames(3, 144, 256, 1, 1))).to(cuda_device)
     before = warp_bilinear.launches
-    got = tdense.farneback_flow_video(clip, params)
+    got = tdense.farneback_flow_video(clip, params, device=cuda_device)
     torch.cuda.synchronize()
     assert warp_bilinear.launches - before == 2 * params.iterations * (params.levels + 1)
     with mock.patch.object(tfb, "warp_bilinear", warp_bilinear_reference):
-        want = tdense.farneback_flow_video(clip, params)
+        want = tdense.farneback_flow_video(clip, params, device=cuda_device)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 1])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_patch_bilinear_kernel_matches_plain(cuda_device, c, quantize):
+    """Identical windows, in range and beyond the plane's edges (wrapped
+    and clamped origins): both round every product and sum alike."""
+    rng = np.random.RandomState(c)
+    planes = torch.from_numpy(rng.uniform(-300, 300, (c, 300, 500)).astype(np.float32)).to(cuda_device)
+    tl = torch.from_numpy(rng.uniform(-40, 540, (256, 2)).astype(np.float32)).to(cuda_device)
+    before = patch_bilinear.launches
+    got = patch_bilinear(planes, tl, 15, 15, quantize)
+    torch.cuda.synchronize()
+    assert patch_bilinear.launches == before + 1
+    assert torch.equal(got, patch_bilinear_reference(planes, tl, 15, 15, quantize))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["lanes", "v1"])
+@pytest.mark.parametrize("level", [2, 1, 0])
+def test_lk_level_points_kernel_matches_plain(cuda_device, geometry, level):
+    """The tracker's level in both crop geometries, points in the clipped
+    edge band included: status and top-lefts identical."""
+    params = TRACKER_LK if geometry == "lanes" else LKParams(win_size=(15, 15), slab_margin=8)
+    a, b = _pair()
+    pts = torch.from_numpy(tracker_points(*a.shape, 256)).to(cuda_device)
+    prev = tlk.prepare_frame(torch.from_numpy(a).to(cuda_device), params)
+    nxt = tlk.prepare_frame(torch.from_numpy(b).to(cuda_device), params)
+    center = pts * float(2.0**-level)
+    args, statics, _ = tlk.point_level_inputs(prev, nxt, pts, center, level, params)
+    status = torch.ones(pts.shape[0], dtype=torch.bool, device=cuda_device)
+    before = lk_level.launches
+    tl_k, st_k = lk_level(*args, status, **statics)
+    torch.cuda.synchronize()
+    assert lk_level.launches == before + 1
+    tl_p, st_p = lk_level_reference(*args, status, **statics)
+    assert torch.equal(st_k, st_p)
+    assert torch.equal(tl_k, tl_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [True, False])
+def test_tracker_kernel_path_matches_plain(cuda_device, lanes):
+    """3 tracker steps through both kernels equal the plain path's."""
+    lk = dataclasses.replace(TRACKER_LK, points_lanes=lanes)
+    params = TrackerParams(lk=lk, max_tracks=64, features=FeatureParams(max_candidates=256))
+    clip = torch.from_numpy(np.stack(_frames(4, 144, 256, 2, 1))).to(cuda_device)
+    s0 = ttr.track_step(ttr.init_tracker(params), clip[0], clip[0], params, device=cuda_device)
+    before = (lk_level.launches, patch_bilinear.launches)
+    got, hist = ttr.track_video(clip, params, s0, device=cuda_device)
+    torch.cuda.synchronize()
+    assert lk_level.launches - before[0] == 3 * 6 and patch_bilinear.launches - before[1] == 3 * 8
+    with mock.patch.object(tlk, "lk_level", lk_level_reference), \
+            mock.patch.object(tpatch, "patch_bilinear", patch_bilinear_reference):
+        want, want_hist = ttr.track_video(clip, params, s0, device=cuda_device)
+    for name in ("traj", "length", "alive"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for g, w in zip(hist, want_hist):
+        assert torch.equal(g, w)

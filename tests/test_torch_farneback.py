@@ -338,7 +338,7 @@ def test_farneback_matches_jax(clip, variant):
 
 def test_video_matches_jax_and_pairwise(clip):
     want = np.asarray(jax.jit(lambda f: jdense.farneback_flow_video(f, JPARAMS))(clip.astype(np.float32)))
-    got = tdense.farneback_flow_video(torch.from_numpy(clip), TPARAMS)
+    got = tdense.farneback_flow_video(torch.from_numpy(clip), TPARAMS, device="cpu")
     assert got.shape == want.shape == (3, H, W, 2)
     _epe_ok(got.numpy(), want)
     # eager torch does not reassociate: the scan equals pairwise farneback
@@ -350,10 +350,10 @@ def test_video_matches_jax_and_pairwise(clip):
 def test_farneback_flow_batch_rows_equal_single(clip):
     prev = torch.from_numpy(clip[:2])
     nxt = torch.from_numpy(clip[1:3])
-    out = tdense.farneback_flow(prev, nxt, TPARAMS)
+    out = tdense.farneback_flow(prev, nxt, TPARAMS, device="cpu")
     assert out.shape == (2, H, W, 2)
     for i in range(2):
-        assert torch.equal(out[i], tdense.farneback_flow(prev[i], nxt[i], TPARAMS))
+        assert torch.equal(out[i], tdense.farneback_flow(prev[i], nxt[i], TPARAMS, device="cpu"))
 
 
 def test_radial_normalize_dense_matches_jax():
@@ -368,8 +368,8 @@ def test_unported_warp_modes_raise(clip, mode):
     params = tcore.FarnebackParams(warp_mode=mode)
     frames = torch.from_numpy(clip[:2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdense.farneback_flow(frames[0], frames[1], params)
+        tdense.farneback_flow(frames[0], frames[1], params, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdense.farneback_flow_video(frames, params)
+        tdense.farneback_flow_video(frames, params, device="cpu")
     with pytest.raises(ValueError, match="unknown warp_mode"):
         tfb.farneback(frames[0], frames[1], tcore.FarnebackParams(warp_mode="fast"))

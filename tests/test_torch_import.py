@@ -21,10 +21,14 @@ names = set()
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.add(m.name[len(pkg.__name__) + 1:])
-assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense"} <= names, names
+assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.features",
+        "ops.patch_bilinear", "flow.tracker"} <= names, names
+from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow_video
+from hackathonopticalflow_tpu_torch.flow.tracker import track_video
 
 g = torch.Generator().manual_seed(0)
 n, win, m = 3, 5, 2
@@ -44,9 +48,21 @@ src = torch.rand((5, 6, 7), generator=g)
 fx = torch.rand((6, 7), generator=g) * 9 - 1
 fy = torch.rand((6, 7), generator=g) * 8 - 1
 assert torch.equal(warp_bilinear(src, fx, fy), warp_bilinear_reference(src, fx, fy))
-flows = farneback_flow_video(torch.floor(torch.rand((3, 32, 48), generator=g) * 255).to(torch.uint8))
+flows = farneback_flow_video(
+    torch.floor(torch.rand((3, 32, 48), generator=g) * 255).to(torch.uint8), device="cpu"
+)
 assert warp_bilinear.launches == 0
 assert flows.shape == (2, 32, 48, 2) and bool(torch.isfinite(flows).all())
+
+planes = torch.rand((3, 20, 24), generator=g)
+tl = torch.rand((4, 2), generator=g) * 10
+assert torch.equal(patch_bilinear(planes, tl, 5, 5, True), patch_bilinear_reference(planes, tl, 5, 5, True))
+params = TrackerParams(max_tracks=16, features=FeatureParams(max_corners=8, max_candidates=64))
+state, (heads, alive, length) = track_video(
+    torch.floor(torch.rand((3, 48, 64), generator=g) * 255).to(torch.uint8), params, device="cpu"
+)
+assert patch_bilinear.launches == 0 and lk_level.launches == 0
+assert heads.shape == (2, 16, 2) and state.frame_idx == 2
 assert blocked_mods() <= before
 print("OK")
 """

@@ -136,8 +136,6 @@ def test_lk_level_rejects_bad_inputs(bad):
         dict(grid_kernel="blocked"),
         dict(rescue_large=False),
         dict(rescue_levels=1),
-        dict(points_lanes=True),
-        dict(compute_err=True),
     ],
 )
 def test_unported_configs_raise(change):

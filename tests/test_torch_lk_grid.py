@@ -78,7 +78,7 @@ def test_post_lk_matches_jax(jax_video):
 
 def test_video_matches_jax(jax_video):
     frames, pts, ref = jax_video
-    got = tgrid.lk_grid_flow_video(torch.from_numpy(frames), torch.from_numpy(pts), lk=TPARAMS)
+    got = tgrid.lk_grid_flow_video(torch.from_numpy(frames), torch.from_numpy(pts), lk=TPARAMS, device="cpu")
     assert got.raw_next_pts.shape == (2, len(pts), 2)
     assert np.array_equal(got.status.numpy(), ref["status"])
     assert np.abs(got.raw_next_pts.numpy() - ref["raw_next_pts"]).max() < 0.05
@@ -91,8 +91,10 @@ def test_video_matches_jax(jax_video):
 def test_lk_grid_flow_equals_video_step():
     frames = _clip()
     pts = torch.from_numpy(measurement_grid(H, W, PARAMS.grid_step))
-    video = tgrid.lk_grid_flow_video(torch.from_numpy(frames[:2]), pts, lk=TPARAMS)
-    pair = tgrid.lk_grid_flow(torch.from_numpy(frames[0]), torch.from_numpy(frames[1]), pts, lk=TPARAMS)
+    video = tgrid.lk_grid_flow_video(torch.from_numpy(frames[:2]), pts, lk=TPARAMS, device="cpu")
+    pair = tgrid.lk_grid_flow(
+        torch.from_numpy(frames[0]), torch.from_numpy(frames[1]), pts, lk=TPARAMS, device="cpu"
+    )
     for name, v in pair._asdict().items():
         assert torch.equal(v, getattr(video, name)[0]), name
 
@@ -100,7 +102,7 @@ def test_lk_grid_flow_equals_video_step():
 def test_pack_unpack_roundtrip():
     frames = _clip()
     pts = torch.from_numpy(measurement_grid(H, W, PARAMS.grid_step))
-    res = tgrid.lk_grid_flow_video(torch.from_numpy(frames), pts, lk=TPARAMS)
+    res = tgrid.lk_grid_flow_video(torch.from_numpy(frames), pts, lk=TPARAMS, device="cpu")
     packed = tgrid.pack_grid_result(res)
     assert packed.shape == (2, 10 * len(pts))
     back = tgrid.unpack_grid_result(packed.numpy(), res.pts[0].numpy())
