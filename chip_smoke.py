@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's sparse pathfinder path, its dense
-Farneback path and its Shi-Tomasi + forward-backward LK tracker once on
-one GPU.
+"""Drive the PyTorch/CUDA port's sparse pathfinder path (and its other LK
+configurations: the blocked grid kernel, the lanes kernel without a
+rescue, the exact path), its dense Farneback path and its Shi-Tomasi +
+forward-backward LK tracker once on one GPU.
 
 Run from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
@@ -10,9 +11,9 @@ toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
 
 Phases, in order; any failure exits non-zero:
 1. device check: a CUDA device is required, there is no CPU path;
-2. kernel build: csrc/lk_level.cu, csrc/warp_bilinear.cu and
-   csrc/patch_bilinear.cu -> build/torch_kernels/ (one nvcc each, started
-   together, sm_90a);
+2. kernel build: csrc/lk_level.cu, csrc/warp_bilinear.cu,
+   csrc/patch_bilinear.cu and csrc/gather_rects.cu -> build/torch_kernels/
+   (one nvcc each, started together, sm_90a);
 3. lk_level kernel vs its plain PyTorch version at L2, L1 and L0 of the
    production params on one 1080p pair: status and top-lefts identical
    (both sum exactly in float64, so any difference is a fault), and the
@@ -53,14 +54,30 @@ Phases, in order; any failure exits non-zero:
     without it (the v1 geometry);
 11. tracker times: fps of the 48 steps through the kernels and through the
     plain versions (best of 3), and each kernel's device time at the
-    tracker's shapes (graph replay).
+    tracker's shapes (graph replay);
+12. lk_level vs its plain version in the anchored geometry (blocked,
+    rescue_large=False, rescue_levels=1) and the exact one, at L2, L1 and
+    L0 of the 2304 grid points on the zoom clip's first pair and on a
+    (+40, +3) pair: identical, with points frozen at L0 on the (+40, +3)
+    pair for blocked and rescue_large=False; device times per level; and
+    patch_bilinear at the exact path's shapes (2304 points, window 45),
+    identical to its plain version, with its device times;
+13. gather_rects through extract_slabs_rect on the 1080p level planes at
+    the blocked kernel's slab shape (2304 x 118 x 128 per level, some
+    origins off the plane): identical to its plain version; device time,
+    bound and the one-call indexing gather's time;
+14. lk_grid_flow_video with the blocked kernel and with the exact path over
+    the 48-pair clip, and with rescue_large=False and rescue_levels=1 over
+    a few pairs: as phase 4 (finite, lk_level at every level, EPE, status,
+    `good` vs the plain path), and the two 48-pair scans' fps.
 
 Each kernel's record carries its bound: the least time an H100 could take
 for the same work, the larger of the bytes it must move (each input read
 once, each output written once, at HBM_BYTES_PER_S) and the operations it
 does on these inputs (at the peak rate for their type), and, where one
 PyTorch call computes the same function (F.grid_sample for both bilinear
-kernels), that call's device time; lk_level has no such call.
+kernels, an advanced-indexing gather for gather_rects), that call's device
+time; lk_level has no such call.
 
 The clips are synthetic: a smooth random texture (seeded torch.Generator)
 zoomed about the frame centre by ZOOM per frame, as in forward flight, so
@@ -234,7 +251,8 @@ def bound(n_bytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0) -> tuple[f
 def lk_level_work(args, statics, stats) -> tuple[float, float, float]:
     """(bytes, float32 ops, float64 ops) of one lk_level call on these
     inputs: templates read, the crops of the points past the spectral gate
-    (at most the level plane), the per-point inputs and outputs; per
+    and active (in the exact geometry, the windows each iteration reads),
+    at most the level plane, the per-point inputs and outputs; per
     template pixel 6 float64 ops for A, per sampled window pixel 16
     float32 ops (blend, W_BITS rounding, difference) and 4 float64 ops
     (b)."""
@@ -244,7 +262,11 @@ def lk_level_work(args, statics, stats) -> tuple[float, float, float]:
     n, npix = tmpl.shape[0], statics["win_w"] * statics["win_h"]
     geometry = statics.get("geometry", "centred")
     cw, ch = crop_size(geometry, statics["m"], statics["win_w"], statics["win_h"])
-    crops = min(stats["good"] * cw * ch, plane_p.numel()) * 4
+    if geometry == "exact":
+        read = stats["iterations"] * (statics["win_w"] + 1) * (statics["win_h"] + 1)
+    else:
+        read = stats["good"] * cw * ch
+    crops = min(read, plane_p.numel()) * 4
     n_bytes = tmpl.numel() * 4 + crops + n * (8 + 8 + 1) + n * (8 + 1)
     pix_iters = stats["iterations"] * npix
     return n_bytes, 16.0 * pix_iters, 6.0 * n * npix + 4.0 * pix_iters
@@ -736,6 +758,293 @@ def tracker_phases(dev, clip) -> dict:
         "tracker_survival_share": survival,
     }
 
+def shifted_pair(dev, dx: int, dy: int, h: int = H, w: int = W) -> tuple[torch.Tensor, torch.Tensor]:
+    """u8 frames a, b of the clip's texture with b(x, y) = a(x + dx, y + dy):
+    at (+40, +3) (the JAX package's test_rescue_recovers_large_flow shift)
+    LK follows the shift down the pyramid, and at level 0 the crop at the
+    coarse estimate leaves the grid-anchored slab."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    lat = smooth_texture(gen, dev, h + 2 * abs(dy) + 60, w + 2 * abs(dx) + 60)
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float64, device=dev),
+        torch.arange(w, dtype=torch.float64, device=dev),
+        indexing="ij",
+    )
+
+    def frame(ox, oy):
+        return torch.floor(sample_texture(lat, xx + ox, yy + oy) + 0.5).to(torch.uint8)
+
+    return frame(0, 0), frame(dx, dy)
+
+
+def new_lk_configs():
+    """The LK configurations of phases 12-14: the grid-anchored crops
+    (blocked kernel; lanes without a rescue below the top, or with it at
+    level 0 only) and the exact path, on the sparse grid."""
+    import dataclasses
+
+    from hackathonopticalflow_tpu_torch.core import LKParams
+
+    prod = LKParams(grid_step=30, compute_err=False)
+    return {
+        "blocked": dataclasses.replace(prod, grid_kernel="blocked"),
+        "no_rescue": dataclasses.replace(prod, rescue_large=False),
+        "rescue_levels_1": dataclasses.replace(prod, rescue_levels=1),
+        "exact": LKParams(compute_err=False),
+    }
+
+
+def new_lk_phases(dev, clip) -> dict:
+    """Phase 12: lk_level vs its plain version in the anchored geometry
+    (three configurations) and the exact one, at every level of the 2304
+    grid points on the zoom clip's first pair and on a (+40, +3) pair;
+    frozen points per level; device times on the zoom pair."""
+    from hackathonopticalflow_tpu_torch.core import measurement_grid
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+
+    pts_np = measurement_grid(H, W, 30)
+    pts = torch.from_numpy(pts_np).to(dev)
+    grid_xy = (np.unique(pts_np[:, 0]).astype(int), np.unique(pts_np[:, 1]).astype(int))
+    # (template frame, search frame): the zoom pair backward, as phase 3
+    pairs = {"zoom": (clip[1], clip[0]), "shift_40_3": shifted_pair(dev, 40, 3)}
+    max_err = 0.0
+    times = {}
+    for config, params in new_lk_configs().items():
+        ms = plain_ms = 0.0
+        work = [0.0, 0.0, 0.0]
+        for pair, (a, b) in pairs.items():
+            cur = lk_mod.prepare_frame(a, params)
+            prev = lk_mod.prepare_frame(b, params)
+            center = pts * (1.0 / (1 << params.max_level))
+            status = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+            frozen = {}
+            for level in range(params.max_level, -1, -1):
+                if level != params.max_level:
+                    center = center * 2.0
+                if config == "exact":
+                    args, kw, _ = lk_mod.point_level_inputs(cur, prev, pts, center, level, params)
+                else:
+                    args, kw = lk_mod.level_inputs(cur, prev, grid_xy, center, level, params)
+                lk_level.launches = 0
+                tl_k, st_k = lk_level(*args, status, **kw)
+                torch.cuda.synchronize()
+                launches = lk_level.launches
+                stats = {}
+                tl_p, st_p = lk_level_reference(*args, status, **kw, stats=stats)
+                err = float(torch.linalg.vector_norm(tl_k - tl_p, dim=-1).max())
+                same = bool(torch.equal(tl_k, tl_p)) and bool(torch.equal(st_k, st_p))
+                active0 = kw.get("active0")
+                frozen[level] = None if active0 is None else int((~active0).sum())
+                lv_work = lk_level_work(args, kw, stats)
+                log(f"{config} {pair} L{level} ({kw['geometry']}): launches {launches}, max |d| {err:.3g} px, "
+                    f"identical {same}, frozen {frozen[level]}, good {stats['good']}, "
+                    f"iterations {stats['iterations']}, status true {float(st_k.float().mean()):.4f}")
+                if launches != 1 or not same:
+                    raise SystemExit(f"{config} {pair} L{level}: lk_level disagrees with its plain version")
+                max_err = max(max_err, err)
+                if pair == "zoom":
+                    k_ms = graph_ms(lambda: lk_level(*args, status, **kw), 20)
+                    p_ms = graph_ms(lambda: lk_level_reference(*args, status, **kw), 3)
+                    ms, plain_ms = ms + k_ms, plain_ms + p_ms
+                    work = [x + y for x, y in zip(work, lv_work)]
+                    log(f"{config} L{level}: lk_level {k_ms:.4f} ms, plain {p_ms:.4f} ms (graph replay), "
+                        "bound %.4f ms (%s)" % bound(*lv_work))
+                center = tl_p + lk_mod._halfwin(params, dev)
+                status = st_p
+            if pair == "shift_40_3" and config in ("blocked", "no_rescue") and not frozen[0]:
+                raise SystemExit(f"{config}: no point froze at L0 on the (+40, +3) pair")
+        bound_ms, bound_by = bound(*work)
+        times[config] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"{config}: lk_level over the 3 levels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": max_err, "config_ms": times}
+
+def exact_patch_phase(dev, clip) -> dict:
+    """Phase 12b: patch_bilinear at the exact path's shapes on the zoom
+    pair (2304 points, window 45): templates (C = 3) at L2, L1, L0 and the
+    err windows (C = 1) at L0, identical to the plain version; device
+    times (graph replay) beside F.grid_sample's and the bound."""
+    from hackathonopticalflow_tpu_torch.core import measurement_grid
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
+
+    params = new_lk_configs()["exact"]
+    win_w, win_h = params.win_size
+    pts = torch.from_numpy(measurement_grid(H, W, 30)).to(dev)
+    cur = lk_mod.prepare_frame(clip[1], params)
+    prev = lk_mod.prepare_frame(clip[0], params)
+    pad = lk_mod._frame_pad(params)
+    halfwin = lk_mod._halfwin(params, dev)
+    calls = {}
+    for level in range(params.max_level, -1, -1):
+        planes = torch.stack([cur.img_p[level], cur.dix_p[level], cur.diy_p[level]])
+        calls[f"tmpl L{level}"] = (planes, (pts * (1.0 / (1 << level)) - halfwin + pad).contiguous(), True)
+    calls["err L0"] = (prev.img_p[0][None].contiguous(), (pts - halfwin + pad).contiguous(), False)
+    ii = torch.arange(win_h, dtype=torch.float32, device=dev)[None, :, None]
+    jj = torch.arange(win_w, dtype=torch.float32, device=dev)[None, None, :]
+    out = {"exact_ms": 0.0, "exact_plain_ms": 0.0, "exact_library_ms": 0.0}
+    n_bytes = f32_ops = 0.0
+    for key, (planes, tl, quantize) in calls.items():
+        got = patch_bilinear(planes, tl, win_h, win_w, quantize)
+        want = patch_bilinear_reference(planes, tl, win_h, win_w, quantize)
+        same = bool(torch.equal(got, want))
+        if not same:
+            raise SystemExit(f"patch_bilinear exact {key}: kernel disagrees with the plain version")
+        k_ms = graph_ms(lambda: patch_bilinear(planes, tl, win_h, win_w, quantize), 20)
+        p_ms = graph_ms(lambda: patch_bilinear_reference(planes, tl, win_h, win_w, quantize), 5)
+        xs = (tl[:, 0, None, None] + jj).expand(-1, win_h, -1)
+        ys = (tl[:, 1, None, None] + ii).expand(-1, -1, win_w)
+        l_ms = grid_sample_ms(planes, xs, ys, "zeros", 20)
+        c, n = planes.shape[0], tl.shape[0]
+        call_bytes = min(planes.numel(), n * c * (win_h + 1) * (win_w + 1)) * 4 + n * 8 + got.numel() * 4
+        call_ops = got.numel() * (11 if quantize else 7) + 12 * n
+        n_bytes, f32_ops = n_bytes + call_bytes, f32_ops + call_ops
+        out["exact_ms"] += k_ms
+        out["exact_plain_ms"] += p_ms
+        out["exact_library_ms"] += l_ms
+        log(f"patch_bilinear exact {key} {tuple(got.shape)}: identical {same}, device time (graph replay) "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, F.grid_sample {l_ms:.4f} ms, "
+            "bound %.4f ms (%s)" % bound(call_bytes, call_ops))
+    out["exact_bound_ms"], _ = bound(n_bytes, f32_ops)
+    return out
+
+
+def gather_rects_phase(dev, clip) -> dict:
+    """Phase 13: extract_slabs_rect (the gather_rects kernel) on the 1080p
+    level planes at the blocked kernel's slab shape (2304 rects of 118 x
+    128 per level, 32 of them off the plane) vs its plain version; device
+    times (graph replay) beside the bound and the one-call indexing
+    gather."""
+    from hackathonopticalflow_tpu_torch.core import measurement_grid
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
+    from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import slice_start
+
+    params = new_lk_configs()["blocked"]
+    win_w, win_h = params.win_size
+    mx, my = (128 - win_w - 1) // 2, params.slab_margin_y
+    ry, rx = win_h + 1 + 2 * my, win_w + 1 + 2 * mx
+    pad = lk_mod._frame_pad(params)
+    prep = lk_mod.prepare_frame(clip[0], params)
+    pts_np = measurement_grid(H, W, 30)
+    xs, ys = np.unique(pts_np[:, 0]).astype(int), np.unique(pts_np[:, 1]).astype(int)
+    rng = np.random.RandomState(SEED)
+    calls = {}
+    for level in range(params.max_level, -1, -1):
+        bx, _ = patch_mod._axis_bases(xs, level, (win_w - 1) * 0.5 + mx)
+        by, _ = patch_mod._axis_bases(ys, level, (win_h - 1) * 0.5 + my)
+        org = np.stack(np.meshgrid(bx, by, indexing="ij"), -1).reshape(-1, 2) + pad
+        hp, wp = prep.img_p[level].shape
+        org[-32:] = np.stack([rng.randint(-300, wp + 300, 32), rng.randint(-300, hp + 300, 32)], -1)
+        calls[f"L{level}"] = (prep.img_p[level], torch.from_numpy(org.astype(np.int32)).to(dev))
+    gather_rects.launches = 0
+    outs = {k: patch_mod.extract_slabs_rect(plane, org, ry, rx) for k, (plane, org) in calls.items()}
+    torch.cuda.synchronize()
+    launches = gather_rects.launches
+    log(f"extract_slabs_rect over the 3 levels: gather_rects launches {launches}")
+    if launches != len(calls):
+        raise SystemExit("extract_slabs_rect did not run the gather_rects kernel")
+    ms = plain_ms = lib_ms = n_bytes = 0.0
+    max_err = 0.0
+    for key, (plane, org) in calls.items():
+        ref = gather_rects_reference(plane, org, ry, rx)
+        err = float((outs[key] - ref).abs().max())
+        same = bool(torch.equal(outs[key], ref))
+        log(f"gather_rects {key} {tuple(outs[key].shape)} of {tuple(plane.shape)}: max |d| {err:.3g}, identical {same}")
+        if not same:
+            raise SystemExit(f"gather_rects {key}: kernel disagrees with the plain version")
+        max_err = max(max_err, err)
+        hp, wp = plane.shape
+        x0 = slice_start(org[:, 0].long(), wp, rx)
+        y0 = slice_start(org[:, 1].long(), hp, ry)
+        rows = (y0[:, None] + torch.arange(ry, device=dev))[:, :, None]
+        cols = (x0[:, None] + torch.arange(rx, device=dev))[:, None, :]
+        k_ms = graph_ms(lambda: gather_rects(plane, org, ry, rx), 20)
+        p_ms = graph_ms(lambda: gather_rects_reference(plane, org, ry, rx), 5)
+        l_ms = graph_ms(lambda: plane[rows, cols], 20)
+        # the plane read once (at most), the origins, the rects written once
+        call_bytes = min(plane.numel(), ref.numel()) * 4 + org.numel() * 4 + ref.numel() * 4
+        ms, plain_ms, lib_ms, n_bytes = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms, n_bytes + call_bytes
+        log(f"gather_rects {key}: device time (graph replay) {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"indexing gather {l_ms:.4f} ms, bound %.4f ms (%s)" % bound(call_bytes))
+    bound_ms, bound_by = bound(n_bytes)
+    log(f"gather_rects over the 3 levels: {ms:.4f} ms, plain {plain_ms:.4f} ms, indexing gather "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB)")
+    return {
+        "name": "gather_rects",
+        "route": "cuda",
+        "source": "hackathonopticalflow_tpu_torch/csrc/gather_rects.cu",
+        "replaces": "hackathonopticalflow_tpu/ops/carve_pallas.py:85",
+        "launches": launches,
+        "launches_by_path": {"extract_slabs_rect": launches},
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+    }
+
+
+def new_scan_phases(dev, clip) -> dict:
+    """Phase 14: lk_grid_flow_video over the 48-pair clip with the blocked
+    kernel and with the exact path, and over a few pairs with
+    rescue_large=False and with rescue_levels=1: finite fields, lk_level
+    at every level of every pair, median endpoint error against the known
+    flow < TOL_EPE_PX on status-true points, >= 95% status true, `good`
+    agreeing with the plain path on >= 99% of points; fps through the
+    kernels."""
+    from hackathonopticalflow_tpu_torch.core import measurement_grid
+    from hackathonopticalflow_tpu_torch.flow import lk_grid
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
+
+    pts = torch.from_numpy(measurement_grid(H, W, 30)).to(dev)
+    out = {"lk_level_launches": {}, "patch_bilinear_launches": {}}
+    runs = {"blocked": N_FRAMES, "exact": N_FRAMES, "no_rescue": PLAIN_PAIRS + 1,
+            "rescue_levels_1": PLAIN_PAIRS + 1}
+    for config, params in new_lk_configs().items():
+        frames = clip[: runs[config]]
+        pairs = frames.shape[0] - 1
+        lk_level.launches = patch_bilinear.launches = 0
+        res = lk_grid.lk_grid_flow_video(frames, pts, lk=params, device=dev)
+        torch.cuda.synchronize()
+        out["lk_level_launches"][config] = lk_level.launches
+        out["patch_bilinear_launches"][config] = patch_bilinear.launches
+        log(f"{config} scan ({pairs} pairs): lk_level launches {lk_level.launches}, "
+            f"patch_bilinear launches {patch_bilinear.launches}")
+        if lk_level.launches < 3 * pairs:
+            raise SystemExit(f"the {config} scan did not run lk_level at every level")
+        for name, v in res._asdict().items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise SystemExit(f"{config}: non-finite values in {name}")
+        st = res.status
+        epe = torch.linalg.vector_norm(res.raw_next_pts.double() - true_backward(pts), dim=-1)
+        med_epe = float(epe[st].median())
+        st_frac = float(st.double().mean())
+        with mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+                mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
+            plain = lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
+        good_agree = float((plain.good == res.good[:PLAIN_PAIRS]).double().mean())
+        raw_diff = float((plain.raw_next_pts - res.raw_next_pts[:PLAIN_PAIRS]).abs().max())
+        log(f"{config} scan: median EPE {med_epe:.4f} px on status-true points, status true {st_frac:.4f}, "
+            f"good {float(res.good.double().mean()):.4f}; plain path ({PLAIN_PAIRS} pairs): good agreement "
+            f"{good_agree:.4f}, max |raw_next_pts diff| {raw_diff:.3g} px")
+        if not med_epe < TOL_EPE_PX or st_frac < 0.95 or good_agree < 0.99:
+            raise SystemExit(f"the {config} scan's flow is wrong")
+        out[f"{config}_median_epe_px"] = med_epe
+        if pairs == N_FRAMES - 1:
+            scan_s = min(host_seconds(lambda: lk_grid.lk_grid_flow_video(frames, pts, lk=params, device=dev))
+                         for _ in range(2))
+            out[f"{config}_scan_fps"] = pairs / scan_s
+            log(f"{config} scan 48 pairs 1080p through the kernels: {pairs / scan_s:.2f} fps "
+                f"({scan_s * 1e3:.1f} ms)")
+    return out
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -757,7 +1066,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from hackathonopticalflow_tpu_torch import kernels
 
-    names = ["lk_level", "warp_bilinear", "patch_bilinear"]
+    names = ["lk_level", "warp_bilinear", "patch_bilinear", "gather_rects"]
     t0 = time.perf_counter()
     paths = kernels.build_all(names)
     for name in names:
@@ -774,6 +1083,10 @@ def main() -> int:
     sparse = sparse_phases(dev, clip)
     dense = dense_phases(dev)
     track = tracker_phases(dev, clip)
+    new_lk = new_lk_phases(dev, clip)
+    exact_pb = exact_patch_phase(dev, clip)
+    gather = gather_rects_phase(dev, clip)
+    scans = new_scan_phases(dev, clip)
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
@@ -781,11 +1094,18 @@ def main() -> int:
 
     lk = sparse.pop("kernel")
     lk_track = track.pop("lk_level")
-    lk["launches"] += lk_track.pop("launches")
-    lk["launches_by_path"]["tracker"] = lk["launches"] - lk["launches_by_path"]["sparse"]
-    lk["max_abs_err"] = max(lk["max_abs_err"], lk_track.pop("max_abs_err"))
+    lk["launches_by_path"]["tracker"] = lk_track.pop("launches")
+    lk["launches_by_path"].update(scans.pop("lk_level_launches"))
+    lk["launches"] = sum(lk["launches_by_path"].values())
+    lk["max_abs_err"] = max(lk["max_abs_err"], lk_track.pop("max_abs_err"), new_lk.pop("max_abs_err"))
+    lk["replaces"] += ", hackathonopticalflow_tpu/ops/lk_pallas2.py:64"
     lk.update(lk_track)
-    record = {"kernels": [lk, dense.pop("kernel"), track.pop("kernel")], **sparse, **dense, **track}
+    lk.update(new_lk)
+    pb = track.pop("kernel")
+    pb["launches_by_path"]["exact"] = scans.pop("patch_bilinear_launches")["exact"]
+    pb["launches"] = sum(pb["launches_by_path"].values())
+    pb.update(exact_pb)
+    record = {"kernels": [lk, dense.pop("kernel"), pb, gather], **sparse, **dense, **track, **scans}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

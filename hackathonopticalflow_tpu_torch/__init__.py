@@ -11,7 +11,9 @@ core      configs and the measurement grid (the JAX package's fields and
           defaults, held equal by tests/test_torch_core.py)
 ops       frame preparation, grid templates, windows at arbitrary points
           (CUDA kernel `patch_bilinear` beside its plain PyTorch version),
-          the LK level (CUDA kernel `lk_level` beside its plain version),
+          integer-origin slabs (CUDA kernel `gather_rects` beside its plain
+          version), the LK level (CUDA kernel `lk_level` beside its plain
+          version; every LK configuration of the JAX package),
           pyramidal LK on the grid or at arbitrary points, Shi-Tomasi
           corners, stats; dense image primitives, the coefficient warp
           (CUDA kernel `warp_bilinear` beside its plain version), Farneback

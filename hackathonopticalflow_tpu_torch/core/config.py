@@ -18,19 +18,18 @@ import dataclasses
 class LKParams:
     """Pyramidal Lucas-Kanade parameters (cv2.calcOpticalFlowPyrLK parity).
 
-    Two paths are ported. With grid_step set, the static-grid production
-    configuration (grid_kernel "lanes", rescue_large with rescue_levels
-    None). Without it, arbitrary points (the tracker's) in one of two crop
+    Without grid_step, arbitrary points (the tracker's) in one of three
     geometries: points_lanes=True is the JAX package's use_pallas=True,
     points_lanes=True (crops centred at each point's clipped init, margin
     slab_margin or 8); points_lanes=False with slab_margin set is its v1
-    slab geometry (use_pallas=True without lanes, or its XLA slab path).
-    slab_margin=None without grid_step or points_lanes is the exact path,
-    which ops/lk.py rejects with NotImplementedError, as it does the other
-    unported options. The JAX package's fields that only choose between
-    TPU implementations of a computation (use_pallas, pallas_block,
-    early_exit, lanes_packed, carve_dma) or serve an unported path
-    (iter_margin) are left out."""
+    slab geometry (use_pallas=True without lanes, or its XLA slab path);
+    slab_margin=None without points_lanes is the exact path (JAX's default
+    LKParams(): each iteration samples its window straight from the
+    plane). With grid_step set, the static-grid path with either grid
+    kernel, "lanes" or "blocked", and any rescue_large / rescue_levels.
+    The JAX package's fields that only choose between TPU implementations
+    of a computation (use_pallas, pallas_block, early_exit, lanes_packed,
+    carve_dma) are left out."""
 
     win_size: tuple[int, int] = (45, 45)  # (w, h)
     max_level: int = 2
@@ -44,20 +43,28 @@ class LKParams:
     points_lanes: bool = False
     #: measurement-grid step: pts MUST be measurement_grid(h, w, grid_step)
     grid_step: int | None = None
-    #: the reference's static-slab margins; here they only size the
-    #: frame pad, so that both packages pad identically
+    #: drift budget below the top level of the grid-anchored slabs (px at
+    #: the level's scale): a point whose crop at its coarse init does not
+    #: fit in its slab freezes there and keeps the coarse estimate
+    iter_margin: int = 12
+    #: the grid-anchored slab margins (slab_margin_x is (128-win-1)//2 for
+    #: the blocked kernel); they also size the frame pad
     slab_margin_y: int = 36
     slab_margin_x: int = 41
     #: crop margin at the top level, around each point's grid anchor (px
     #: at that level's scale)
     iter_margin_top: int = 32
-    #: per-point residual err at level 0 (mean |window - template|)
+    #: per-point residual err at level 0 (mean |window - template|) on the
+    #: grid path; the arbitrary-point paths always give it, as JAX's do
     compute_err: bool = True
+    #: grid path: "lanes" (init-centred levels as rescue_large and
+    #: rescue_levels say, grid-anchored crops elsewhere) or "blocked"
+    #: (grid-anchored crops at every level, the JAX package's v2 kernel)
     grid_kernel: str = "lanes"
     #: crops below the top level centred at each point's coarse estimate
     rescue_large: bool = True
-    #: None: every level below the top is init-centred (an int k: only
-    #: levels < k, not ported)
+    #: None: every level below the top is init-centred; an int k: only
+    #: levels < k, the others grid-anchored
     rescue_levels: int | None = None
     #: crop margin of the init-centred levels (px at the level's scale)
     rescue_margin: int = 20

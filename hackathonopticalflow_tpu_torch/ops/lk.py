@@ -3,28 +3,38 @@
 Two paths, chosen by params.grid_step; every level runs
 `ops/lk_level.py::lk_level`.
 
-- grid_step set: the sparse pathfinder's static-grid production
-  configuration (the lanes grid kernel, init-centred crops at every level
-  below the top: rescue_large=True, rescue_levels=None). Templates come
-  from the grid extractor; at the top level each point's crop is anchored
-  at its grid position with margin iter_margin_top, below it at the
-  point's clipped coarse estimate with margin rescue_margin.
+- grid_step set: the static measurement grid. Templates come from the
+  grid extractor. Each level's crop is one of three:
+  - at the top level of the lanes kernel, anchored at the point's grid
+    position with margin iter_margin_top ("centred": the JAX lanes
+    kernels' slab is that crop);
+  - below the top with a rescue there (rescue_large, and rescue_levels
+    None or above the level), centred at the point's clipped coarse
+    estimate with margin rescue_margin ("centred");
+  - everywhere else (every level of grid_kernel="blocked"; the lanes
+    levels without a rescue), cut from the grid-anchored slab at the
+    coarse estimate with margin iter_margin (iter_margin_top at the top)
+    ("anchored"): a point whose crop does not fit in its slab freezes
+    and keeps the coarse estimate, as the JAX kernels' phase A does.
 - grid_step None: arbitrary points (the tracker's). Templates are
   bilinear windows at each point (`extract_patches_multi`, the
   `patch_bilinear` kernel on the GPU); points whose template window lies
   outside the frame get zero templates, which the level's spectral gate
   rejects. With points_lanes, crops are centred at each point's init,
-  clipped to [-(win+2), size+2] (JAX use_pallas + points_lanes); without,
-  the v1 slab geometry (JAX lk_iterate, or its XLA slab path). The crop
-  margin is slab_margin (8 if None with points_lanes).
+  clipped to [-(win+2), size+2] (JAX use_pallas + points_lanes); with a
+  slab_margin, the v1 slab geometry (JAX lk_iterate, or its XLA slab
+  path); with neither, the exact path (JAX's default LKParams(): each
+  iteration reads its window from the plane).
 
-With compute_err, level 0 also gives OpenCV's err: the mean |window -
-template| at each point's final position, 0 where status is false.
-Other configurations raise NotImplementedError naming their ROADMAP item.
+Level 0 also gives OpenCV's err, the mean |window - template| at each
+point's final position, 0 where status is false: always on the
+arbitrary-point paths and with compute_err on the grid path, as the JAX
+package does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -34,14 +44,14 @@ from ..core import LKParams, measurement_grid
 from .deriv import scharr_deriv
 from .image import reflect101_pad
 from .lk_level import lk_level
-from .patch import extract_grid_templates, extract_patches, extract_patches_multi
+from .patch import _axis_bases, extract_grid_templates, extract_patches, extract_patches_multi
 from .pyramid import build_pyramid
 
 
 class LKResult(NamedTuple):
     next_pts: torch.Tensor  # (N, 2) float32
     status: torch.Tensor  # (N,) bool — False where tracking failed at level 0
-    err: torch.Tensor  # (N,) float32 — mean |window residual| at level 0 (zeros without compute_err)
+    err: torch.Tensor  # (N,) float32 — mean |window residual| at level 0 (zeros on the grid path without compute_err)
 
 
 class PreparedFrame(NamedTuple):
@@ -85,26 +95,17 @@ def _init_centered_pad(win_w: int, win_h: int, margin: int) -> int:
     return max(win_w + margin + 3 + slack, win_h + margin + 3)
 
 
-def _check_slice(params: LKParams) -> None:
-    """Raise for configurations outside the ported paths."""
-    todo = "is not ported yet: ROADMAP.md, queue 1, item"
-    if params.grid_step is None:
-        if not params.points_lanes and params.slab_margin is None:
-            raise NotImplementedError(
-                f"grid_step=None with slab_margin=None (the exact _level_lk path) {todo} 3"
-            )
-        return
-    if params.grid_kernel != "lanes":
-        raise NotImplementedError(f"grid_kernel={params.grid_kernel!r} {todo} 3")
-    if not params.rescue_large or params.rescue_levels is not None:
-        raise NotImplementedError(
-            f"rescue_large=False / an integer rescue_levels {todo} 4"
-        )
+GRID_KERNELS = ("lanes", "blocked")
+
+
+def _check_params(params: LKParams) -> None:
+    if params.grid_kernel not in GRID_KERNELS:
+        raise ValueError(f"grid_kernel must be one of {GRID_KERNELS}, got {params.grid_kernel!r}")
 
 
 def prepare_frame(img: torch.Tensor, params: LKParams) -> PreparedFrame:
     """img: (H, W) grayscale in [0, 255] (any dtype; cast to float32)."""
-    _check_slice(params)
+    _check_params(params)
     pad = _frame_pad(params)
     pyr = build_pyramid(img.to(torch.float32), params.max_level)
     imgs, dxs, dys = [], [], []
@@ -117,10 +118,66 @@ def prepare_frame(img: torch.Tensor, params: LKParams) -> PreparedFrame:
 
 
 def _halfwin(params: LKParams, device) -> torch.Tensor:
-    win_w, win_h = params.win_size
+    """(2,) float32 [(win_w - 1) / 2, (win_h - 1) / 2] on `device`. Made
+    once per window and device: a tensor built from the host at every
+    level costs a pageable copy and a stream sync each."""
+    return _halfwin_on(tuple(params.win_size), torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _halfwin_on(win_size: tuple, device: torch.device) -> torch.Tensor:
+    win_w, win_h = win_size
     return torch.tensor(
         [(win_w - 1) * 0.5, (win_h - 1) * 0.5], dtype=torch.float32, device=device
     )
+
+
+def _anchored(level: int, params: LKParams) -> bool:
+    """Whether a grid level cuts its crops from grid-anchored slabs: every
+    level of the blocked kernel; below the top, the lanes levels without a
+    rescue (JAX ops/lk.py:575-579)."""
+    if params.grid_kernel == "blocked":
+        return True
+    if level == params.max_level:
+        return False
+    rescue = params.rescue_large and (params.rescue_levels is None or level < params.rescue_levels)
+    return not rescue
+
+
+def _anchored_crops(
+    tl0: torch.Tensor, grid_xy: tuple, level: int, m: int, params: LKParams
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(crop_org (N, 2) int32, fits (N,) bool) of the grid-anchored crops,
+    the grid kernels' phase A (JAX lk_pallas2.py:130-159,
+    lk_pallas3.py:119-126, 167-177). Each point's slab sits at its grid
+    anchor: (win+1+2*margin) px per axis from _axis_bases(coords, level,
+    halfwin + margin), margins (slab_margin_x, slab_margin_y), or
+    ((128-win_w-1)//2, slab_margin_y) for the blocked kernel, whose slab is
+    128 px wide. The crop of win+1+2m px starts at clip(floor(tl0) - base -
+    m, 0, slack) inside it; a point whose unclipped offset leaves [0,
+    slack] does not fit and freezes. The slack is Rx - crop_x for blocked,
+    Rx - round_up(crop_x, 8) for lanes (unless Rx == crop_x): at window 45
+    and m 12, 58 and 56 px."""
+    win_w, win_h = params.win_size
+    blocked = params.grid_kernel == "blocked"
+    mx = (128 - win_w - 1) // 2 if blocked else params.slab_margin_x
+    my = params.slab_margin_y
+    rx, ry = win_w + 1 + 2 * mx, win_h + 1 + 2 * my
+    crop_x, crop_y = win_w + 1 + 2 * m, win_h + 1 + 2 * m
+    if not blocked and rx != crop_x:
+        crop_x = -(-crop_x // 8) * 8
+    slack_x, slack_y = rx - crop_x, ry - crop_y
+    if slack_x < 0 or slack_y < 0:
+        raise ValueError(f"crop {crop_y}x{crop_x} larger than the {ry}x{rx} slab")
+    xs, ys = grid_xy
+    bx, _ = _axis_bases(xs, level, (win_w - 1) * 0.5 + mx)
+    by, _ = _axis_bases(ys, level, (win_h - 1) * 0.5 + my)
+    base = np.stack(np.meshgrid(bx, by, indexing="ij"), -1).reshape(-1, 2)  # x-major
+    base = torch.as_tensor(base.astype(np.int32), device=tl0.device)
+    raw = torch.floor(tl0).to(torch.int32) - base - m
+    fits = (raw[:, 0] >= 0) & (raw[:, 0] <= slack_x) & (raw[:, 1] >= 0) & (raw[:, 1] <= slack_y)
+    off = torch.stack([raw[:, 0].clamp(0, slack_x), raw[:, 1].clamp(0, slack_y)], dim=-1)
+    return base + off, fits
 
 
 def level_inputs(
@@ -132,9 +189,9 @@ def level_inputs(
     params: LKParams,
 ) -> tuple[tuple, dict]:
     """The arguments of `lk_level` (all but status0) for one level of the
-    production grid path: templates at the grid points of `prev_prep`,
-    search in `next_prep` from `next_center`. Returns
-    ((tmpl, plane_p, pad, tl0, crop_org), statics)."""
+    grid path: templates at the grid points of `prev_prep`, search in
+    `next_prep` from `next_center`. Returns ((tmpl, plane_p, pad, tl0,
+    crop_org), keyword arguments)."""
     xs, ys = grid_xy
     win_w, win_h = params.win_size
     pad = _frame_pad(params)
@@ -145,25 +202,32 @@ def level_inputs(
     tmpl = extract_grid_templates(planes, xs, ys, level, win_w, win_h, pad)
 
     tl0 = next_center - _halfwin(params, next_center.device)
-    if level == params.max_level:
-        # the top-level init is the grid anchor: the crop is anchored there
-        m = params.iter_margin_top
+    if _anchored(level, params):
+        geometry = "anchored"
+        m = params.iter_margin_top if level == params.max_level else params.iter_margin
+        crop_org, active0 = _anchored_crops(tl0, grid_xy, level, m, params)
     else:
-        # init-centred crop; wild inits are clipped just enough to keep
-        # the crop inside the padded plane (they stay beyond the oob gate)
-        m = params.rescue_margin
-        tl0 = torch.stack(
-            [
-                torch.clamp(tl0[:, 0], -(win_w + 2.0), w + 2.0),
-                torch.clamp(tl0[:, 1], -(win_h + 2.0), h + 2.0),
-            ],
-            dim=-1,
-        )
-    crop_org = torch.floor(tl0).to(torch.int32) - m
+        geometry, active0 = "centred", None
+        if level == params.max_level:
+            # the top-level init is the grid anchor: the crop is anchored there
+            m = params.iter_margin_top
+        else:
+            # init-centred crop; wild inits are clipped just enough to keep
+            # the crop inside the padded plane (they stay beyond the oob gate)
+            m = params.rescue_margin
+            tl0 = torch.stack(
+                [
+                    torch.clamp(tl0[:, 0], -(win_w + 2.0), w + 2.0),
+                    torch.clamp(tl0[:, 1], -(win_h + 2.0), h + 2.0),
+                ],
+                dim=-1,
+            )
+        crop_org = torch.floor(tl0).to(torch.int32) - m
     statics = dict(
         m=m, win_w=win_w, win_h=win_h, level_w=w, level_h=h,
         max_iters=params.max_iters, eps2=float(max(params.eps, 0.0) ** 2),
         is_level0=(level == 0), min_eig_threshold=params.min_eig_threshold,
+        geometry=geometry, active0=active0,
     )
     return (tmpl, next_prep.img_p[level], pad, tl0.contiguous(), crop_org), statics
 
@@ -193,7 +257,7 @@ def _level_lk_static_grid(
     level: int,
     params: LKParams,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
-    """One level of the production grid path. Returns (next_center,
+    """One level of the grid path. Returns (next_center,
     status, err), err None except at level 0 with compute_err."""
     args, statics = level_inputs(
         prev_prep, next_prep, grid_xy, next_center, level, params
@@ -218,7 +282,8 @@ def point_level_inputs(
     arbitrary-point path: templates at pts / 2^level in `prev_prep`
     (zeroed where the template window lies outside the frame), search in
     `next_prep` from `next_center`. Returns ((tmpl, plane_p, pad, tl0,
-    crop_org), statics, template image) — the last unzeroed, for err."""
+    crop_org), keyword arguments, template image) — the last unzeroed,
+    for err."""
     win_w, win_h = params.win_size
     pad = _frame_pad(params)
     halfwin = _halfwin(params, pts.device)
@@ -236,7 +301,9 @@ def point_level_inputs(
 
     m = _point_margin(params)
     tl0 = next_center - halfwin
-    if params.points_lanes:
+    if not params.points_lanes and params.slab_margin is None:
+        geometry, m = "exact", 0
+    elif params.points_lanes:
         # init-centred crop; wild inits are clipped just enough to keep the
         # crop inside the padded plane (they stay beyond the oob gate)
         geometry = "centred"
@@ -249,7 +316,7 @@ def point_level_inputs(
         )
     else:
         geometry = "v1"
-    crop_org = torch.floor(tl0).to(torch.int32) - m
+    crop_org = torch.floor(tl0).to(torch.int32) - m  # (unused in "exact")
     statics = dict(
         m=m, win_w=win_w, win_h=win_h, level_w=w, level_h=h,
         max_iters=params.max_iters, eps2=float(max(params.eps, 0.0) ** 2),
@@ -270,11 +337,13 @@ def _level_lk(
     params: LKParams,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """One level of the arbitrary-point path. Returns (next_center,
-    status, err), err None except at level 0 with compute_err."""
+    status, err), err None except at level 0, where the JAX package
+    computes it whatever compute_err says (its ops/lk.py:364-369,
+    408-413, 483-488)."""
     args, statics, iw = point_level_inputs(prev_prep, next_prep, pts, next_center, level, params)
     next_tl, status = lk_level(*args, status, **statics)
     err = None
-    if level == 0 and params.compute_err:
+    if level == 0:
         err = _level0_err(args[1], next_tl, iw, status, args[2], params)
     return next_tl + _halfwin(params, next_tl.device), status, err
 
@@ -300,7 +369,7 @@ def pyr_lk_prepared(
     params: LKParams = LKParams(),
 ) -> LKResult:
     """pyr_lk over frames prepared with prepare_frame (the video form)."""
-    _check_slice(params)
+    _check_params(params)
     pts = pts.to(torch.float32)
     if params.grid_step is not None:
         pad = _frame_pad(params)

@@ -1,38 +1,52 @@
 """One pyramid level of LK for N points: the CUDA kernel `lk_level`
 (csrc/lk_level.cu) and its plain PyTorch version `lk_level_reference`.
 
-Port of the level iteration that four TPU kernels carry in the JAX
+Port of the level iteration that five TPU kernels carry in the JAX
 package: ops/lk_pallas3.py::lk_iterate_grid_lanes_packed (grid top level),
-ops/lk_pallas3.py::lk_iterate_grid_lanes (grid lower levels, and the
-tracker's arbitrary points with points_lanes), ops/lk_pallas.py::lk_iterate
-(the v1 per-point kernel) and the crop carve
-ops/carve_pallas.py::gather_rects_panels. Semantics (lk_pallas3.py and
-lk_pallas.py bodies): per point,
+ops/lk_pallas3.py::lk_iterate_grid_lanes (grid lower levels, phase A's
+anchored crops included, and the tracker's arbitrary points with
+points_lanes), ops/lk_pallas2.py::lk_iterate_grid (the blocked grid
+kernel), ops/lk_pallas.py::lk_iterate (the v1 per-point kernel) and the
+crop carve ops/carve_pallas.py::gather_rects_panels; and of the exact XLA
+path of ops/lk.py::_level_lk. Semantics (lk_pallas2.py, lk_pallas3.py,
+lk_pallas.py and lk.py bodies): per point,
 
 - structure tensor A from the template gradients, OpenCV's fixed-point
   scale (x 1/1024), spectral gate minEig < threshold or det < FLT_EPSILON;
   a bad template kills status at level 0 and only deactivates the point
   above it;
-- a crop of the padded next-level plane at the padded origin
-  `crop_org + pad`, clamped into the plane as XLA's dynamic_slice clamps
-  it. Each iteration samples the bilinear window at the window's integer
-  position ix, offset into the crop by clamp(ix - ref, 0, 2m) (the freeze
-  envelope), with the fraction of the unclamped position, and quantizes it
-  to the 1/32 W_BITS grid. Two crop geometries:
-  "centred" (lanes kernels): (win+1+2m) px per axis, ref = crop_org, the
-  unclamped origin (the callers' pads keep live crops unclamped);
-  "v1" (lk_iterate): a square of max(win)+2m+2 px, ref = the CLAMPED
-  origin minus pad (lk_pallas.py:106-107), so points whose slab was
-  clamped at the plane's edge sample the pixels the v1 kernel samples;
+- a point with active0 false (a grid-anchored crop that does not fit in
+  its slab: the kernels' `fits`) runs no iteration and keeps tl0; its
+  status is left as it is, at level 0 too;
+- each iteration samples the bilinear window at the point's estimate and
+  quantizes it to the 1/32 W_BITS grid. Four geometries:
+  "centred" and "anchored" (lanes and blocked kernels): a crop of
+  (win+1+2m) px per axis of the padded next-level plane at the padded
+  origin `crop_org + pad`, clamped into the plane as XLA's dynamic_slice
+  clamps it; the window sits at its integer position ix offset into the
+  crop by clamp(ix - crop_org, 0, 2m) (the freeze envelope), blended
+  value-first ((v * bx) * by, the Pallas kernels' _blend) with the
+  fraction of the unclamped position. "anchored" names the grid-anchored
+  crops, which come with active0; the callers' pads keep live crops
+  unclamped in both;
+  "v1" (lk_iterate): a square crop of max(win)+2m+2 px, window offsets from
+  the CLAMPED origin minus pad (lk_pallas.py:106-107), so points whose slab
+  was clamped at the plane's edge sample the pixels the v1 kernel samples;
+  "exact" (JAX _level_lk without a slab): no crop; the window is read
+  from the plane at floor(tl + pad), placed as dynamic_slice places it
+  (patch_bilinear's contract), with the fraction (tl + pad) - floor(tl +
+  pad) and weights formed first (blend_bilinear); crop_org and m are
+  unused;
 - Gauss-Newton step, |delta|^2 <= eps^2 convergence, the oscillation
-  damper (j > 0; convergence wins), oob (floor outside
+  damper (j > 0; convergence wins), oob (floor(tl) outside
   [-win, level_size)) deactivates and kills status at level 0 only;
   inactive points keep their estimate.
 
 The A and b sums are taken in float64: every term lies on the 1/1024 grid
 and is exact there, so the sums are exact and the kernel, which sums in
 double too, reproduces this version bit for bit in any summation order.
-(JAX's v1 kernel sums in float32, so the port meets it to a tolerance.)
+(JAX's kernels and exact path sum in float32, so the port meets them to a
+tolerance.)
 """
 
 from __future__ import annotations
@@ -40,6 +54,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from .patch_bilinear import patch_bilinear_reference
 
 _CV_SCALE = 1.0 / 1024.0
 _FLT_EPSILON = 1.1920929e-07
@@ -55,17 +71,21 @@ def _sum64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x.double() * y.double()).sum(dim=(1, 2)).float()
 
 
-GEOMETRIES = ("centred", "v1")
+# the kernel's geometry codes ("anchored" is "centred" with active0)
+GEOMETRIES = {"centred": 0, "anchored": 0, "v1": 1, "exact": 2}
 
 
 def crop_size(geometry: str, m: int, win_w: int, win_h: int) -> tuple[int, int]:
-    """(width, height) of a point's crop in `geometry`."""
-    if geometry == "centred":
+    """(width, height) of a point's crop in `geometry`; (0, 0) for "exact",
+    which stages none."""
+    if geometry in ("centred", "anchored"):
         return win_w + 1 + 2 * m, win_h + 1 + 2 * m
     if geometry == "v1":
         s = max(win_w, win_h) + 2 * m + 2
         return s, s
-    raise ValueError(f"geometry must be one of {GEOMETRIES}, got {geometry!r}")
+    if geometry == "exact":
+        return 0, 0
+    raise ValueError(f"geometry must be one of {tuple(GEOMETRIES)}, got {geometry!r}")
 
 
 def lk_level_reference(
@@ -86,11 +106,12 @@ def lk_level_reference(
     is_level0: bool,
     min_eig_threshold: float,
     geometry: str = "centred",
+    active0: torch.Tensor | None = None,
     stats: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `lk_level`, batched over points; same
     arguments and results. If `stats` is a dict, it receives the work the
-    kernel does on these inputs: "good" points (templates past the
+    kernel does on these inputs: "good" points (active, templates past the
     spectral gate; each loads a crop) and "iterations" (point-iterations
     that sample a window), read from the device."""
     dev = tmpl.device
@@ -107,7 +128,7 @@ def lk_level_reference(
     inv_det = torch.where(det > 0, 1.0 / det, torch.zeros_like(det))
 
     status = status0 & ~bad if is_level0 else status0.clone()
-    active = ~bad
+    active = ~bad if active0 is None else ~bad & active0
     if stats is not None:
         stats["good"] = int(active.sum())
     tlx, tly = tl0[:, 0].clone(), tl0[:, 1].clone()
@@ -119,6 +140,7 @@ def lk_level_reference(
     # clamped one (v1)
     hp, wp = plane_p.shape
     cw, ch = crop_size(geometry, m, win_w, win_h)
+    # (unused in "exact")
     ox0 = torch.clamp(crop_org[:, 0] + pad, 0, wp - cw)
     oy0 = torch.clamp(crop_org[:, 1] + pad, 0, hp - ch)
     if geometry == "v1":
@@ -138,19 +160,23 @@ def lk_level_reference(
         if stats is not None:
             stats["iterations"] = stats.get("iterations", 0) + int(active.sum())
 
-        ax = (tlx - ixf)[:, None, None]
-        ay = (tly - iyf)[:, None, None]
-        ox = torch.clamp(ixf.to(torch.int32) - cbx, 0, 2 * m)
-        oy = torch.clamp(iyf.to(torch.int32) - cby, 0, 2 * m)
-        rows = (oy0 + oy)[:, None] + rr  # (N, win_h+1)
-        cols = (ox0 + ox)[:, None] + cc  # (N, win_w+1)
-        raw = plane_p[rows[:, :, None], cols[:, None, :]]
-        jw = _fix(
-            raw[:, :win_h, :win_w] * (1 - ax) * (1 - ay)
-            + raw[:, :win_h, 1:] * ax * (1 - ay)
-            + raw[:, 1:, :win_w] * (1 - ax) * ay
-            + raw[:, 1:, 1:] * ax * ay
-        )
+        if geometry == "exact":
+            tl_p = torch.stack([tlx, tly], dim=-1) + float(pad)
+            jw = patch_bilinear_reference(plane_p[None], tl_p, win_h, win_w, True)[:, 0]
+        else:
+            ax = (tlx - ixf)[:, None, None]
+            ay = (tly - iyf)[:, None, None]
+            ox = torch.clamp(ixf.to(torch.int32) - cbx, 0, 2 * m)
+            oy = torch.clamp(iyf.to(torch.int32) - cby, 0, 2 * m)
+            rows = (oy0 + oy)[:, None] + rr  # (N, win_h+1)
+            cols = (ox0 + ox)[:, None] + cc  # (N, win_w+1)
+            raw = plane_p[rows[:, :, None], cols[:, None, :]]
+            jw = _fix(
+                raw[:, :win_h, :win_w] * (1 - ax) * (1 - ay)
+                + raw[:, :win_h, 1:] * ax * (1 - ay)
+                + raw[:, 1:, :win_w] * (1 - ax) * ay
+                + raw[:, 1:, 1:] * ax * ay
+            )
         diff = jw - iw
         b1 = _sum64(diff, ixw) * _CV_SCALE
         b2 = _sum64(diff, iyw) * _CV_SCALE
@@ -191,9 +217,9 @@ def _lib():
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [
-            p, p, i, i, i, p, p, p, p, p,  # tmpl .. status_out
+            p, p, i, i, i, p, p, p, p, p, p,  # tmpl .. status_out
             i, i, i, i, i, i, i, f, i, f,  # n .. min_eig_threshold
-            i,  # v1 geometry
+            i,  # geometry code
             p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -220,6 +246,7 @@ def lk_level(
     is_level0: bool,
     min_eig_threshold: float,
     geometry: str = "centred",
+    active0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """LK iterations of one pyramid level.
 
@@ -228,7 +255,8 @@ def lk_level(
     tl0: (N, 2) f32 initial window top-lefts [x, y] (unpadded).
     crop_org: (N, 2) i32 unpadded crop origins [x, y].
     status0: (N,) bool.
-    geometry: "centred" or "v1" (module docstring).
+    geometry: "centred", "anchored", "v1" or "exact" (module docstring).
+    active0: (N,) bool or None (all true): points that may iterate.
     Returns (top-lefts (N, 2) f32, status (N,) bool).
 
     CPU tensors run `lk_level_reference`; CUDA tensors launch the kernel
@@ -242,14 +270,17 @@ def lk_level(
     _check("tl0", tl0, torch.float32, (n, 2), dev)
     _check("crop_org", crop_org, torch.int32, (n, 2), dev)
     _check("status0", status0, torch.bool, (n,), dev)
+    if active0 is not None:
+        _check("active0", active0, torch.bool, (n,), dev)
     hp, wp = plane_p.shape
     cw, ch = crop_size(geometry, m, win_w, win_h)
+    cw, ch = max(cw, win_w + 1), max(ch, win_h + 1)
     if hp < ch or wp < cw:
         raise ValueError(f"plane {hp}x{wp} smaller than the {ch}x{cw} crop")
     statics = dict(
         m=m, win_w=win_w, win_h=win_h, level_w=level_w, level_h=level_h,
         max_iters=max_iters, eps2=eps2, is_level0=is_level0,
-        min_eig_threshold=min_eig_threshold, geometry=geometry,
+        min_eig_threshold=min_eig_threshold, geometry=geometry, active0=active0,
     )
     if dev.type == "cpu":
         return lk_level_reference(tmpl, plane_p, pad, tl0, crop_org, status0, **statics)
@@ -266,9 +297,10 @@ def lk_level(
         rc = lib.lk_level_launch(
             tmpl.data_ptr(), plane_p.data_ptr(), hp, wp, pad,
             tl0.data_ptr(), crop_org.data_ptr(), status0.data_ptr(),
+            None if active0 is None else active0.data_ptr(),
             tl_out.data_ptr(), st_out.data_ptr(),
             n, m, win_w, win_h, level_w, level_h, max_iters, eps2,
-            int(is_level0), min_eig_threshold, int(geometry == "v1"), stream,
+            int(is_level0), min_eig_threshold, GEOMETRIES[geometry], stream,
         )
     if rc != 0:
         raise RuntimeError(f"lk_level launch failed: cudaError {rc}")

@@ -1,7 +1,9 @@
-"""Bilinear window sampling: at arbitrary points (port of
+"""Window sampling: bilinear windows at arbitrary points (port of
 hackathonopticalflow_tpu/ops/patch.py's extract_patches,
 extract_patches_multi and blend_bilinear, through the `patch_bilinear`
-kernel) and at the static measurement grid (port of what
+kernel), integer-origin slabs (its extract_slabs and extract_slabs_rect,
+through the `gather_rects` kernel) and windows at the static measurement
+grid (port of what
 hackathonopticalflow_tpu/ops/grid_patch.py::extract_grid_templates_lanes
 computes; the JAX package builds that one in XLA, not Pallas).
 
@@ -13,9 +15,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .gather_rects import gather_rects
 from .patch_bilinear import blend_bilinear, patch_bilinear
 
-__all__ = ["blend_bilinear", "extract_grid_templates", "extract_patches", "extract_patches_multi"]
+__all__ = [
+    "blend_bilinear",
+    "extract_grid_templates",
+    "extract_patches",
+    "extract_patches_multi",
+    "extract_slabs",
+    "extract_slabs_rect",
+]
 
 
 def extract_patches(img: torch.Tensor, top_left: torch.Tensor, size_h: int, size_w: int) -> torch.Tensor:
@@ -34,6 +44,19 @@ def extract_patches_multi(
     fractional top-lefts; with `quantize`, on the 1/32 W_BITS grid (the
     JAX package's _fix of the LK templates, fused into the kernel)."""
     return patch_bilinear(imgs.contiguous(), top_left.contiguous(), size_h, size_w, quantize)
+
+
+def extract_slabs_rect(img: torch.Tensor, top_left_int: torch.Tensor, size_h: int, size_w: int) -> torch.Tensor:
+    """(N, size_h, size_w) integer-aligned slabs of img (H, W) float32 at
+    origins (N, 2) int32 [x, y], placed as XLA's dynamic_slice places them.
+    CPU tensors take the plain version, CUDA tensors the `gather_rects`
+    kernel."""
+    return gather_rects(img.contiguous(), top_left_int.contiguous(), size_h, size_w)
+
+
+def extract_slabs(img: torch.Tensor, top_left_int: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, size, size) slabs: extract_slabs_rect with a square."""
+    return extract_slabs_rect(img, top_left_int, size, size)
 
 
 def _axis_bases(coords: np.ndarray, level: int, off: float):

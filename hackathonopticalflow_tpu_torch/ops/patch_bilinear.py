@@ -31,6 +31,13 @@ _MAX_ORIGIN = float(1 << 30)
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 
+def slice_start(start: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """Where XLA's dynamic_slice starts a slice of `size` along an axis of
+    `dim` for the integer `start`: a negative start is wrapped by `dim`,
+    then the start is clamped into [0, dim - size]."""
+    return torch.where(start < 0, start + dim, start).clamp(0, dim - size)
+
+
 def blend_bilinear(raw: torch.Tensor, frac: torch.Tensor, size_h: int, size_w: int) -> torch.Tensor:
     """Blend the four integer shifts of (N, ..., size_h+1, size_w+1) crops
     with per-point weights from frac (N, 2) [ax, ay] -> (N, ..., size_h,
@@ -61,8 +68,8 @@ def patch_bilinear_reference(
     ip = torch.floor(tl)
     frac = tl - ip
     ipi = torch.clamp(ip, -_MAX_ORIGIN, _MAX_ORIGIN).to(torch.int64)
-    x0 = torch.where(ipi[:, 0] < 0, ipi[:, 0] + wp, ipi[:, 0]).clamp(0, wp - size_w - 1)
-    y0 = torch.where(ipi[:, 1] < 0, ipi[:, 1] + hp, ipi[:, 1]).clamp(0, hp - size_h - 1)
+    x0 = slice_start(ipi[:, 0], wp, size_w + 1)
+    y0 = slice_start(ipi[:, 1], hp, size_h + 1)
     rows = y0[:, None] + torch.arange(size_h + 1, device=dev)
     cols = x0[:, None] + torch.arange(size_w + 1, device=dev)
     raw = planes[:, rows[:, :, None], cols[:, None, :]].transpose(0, 1).contiguous()  # (N, C, h+1, w+1)

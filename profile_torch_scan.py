@@ -15,7 +15,9 @@ first frame (--path tracker; a step per pair). It prints:
 - the scan's wall time without the profiler (best of 3) and the device
   time that torch.profiler records over one more scan, so the device's
   busy share is device time / wall time;
-- host API calls per pair (kernel launches, stream syncs, memcpys);
+- host API calls per pair (kernel launches, stream syncs, memcpys) and
+  the device's copies per pair by kind (pageable host-to-device copies
+  each cost the host a sync);
 - device time by kind of kernel (lk_level, warp_bilinear,
   patch_bilinear, index/gather, elementwise, ...) and the top device ops;
 - stage times from CUDA events for one pair: sparse: prepare_frame,
@@ -62,6 +64,7 @@ KINDS = (
     ("lk_level", ("lk_level",)),
     ("warp_bilinear", ("warp_bilinear",)),
     ("patch_bilinear", ("patch_bilinear",)),
+    ("gather_rects", ("gather_rects",)),
     ("index/gather", ("index", "gather")),
     ("sort", ("sort",)),
     ("elementwise", ("elementwise", "reduce")),
@@ -224,6 +227,9 @@ def main() -> int:
     api = collections.Counter(
         e.name for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cuda")
     )
+    copies = collections.Counter(
+        e.name for e in events if e.device_type == DeviceType.CUDA and e.name.startswith("Memcpy")
+    )
     device_ms = sum(dev_us.values()) / 1e3
     launches = sum(n for name, n in api.items() if name.startswith("cudaLaunch"))
     stages = stages_fn()
@@ -238,6 +244,8 @@ def main() -> int:
           f"device {device_ms:.3f} ms profiled, busy share {device_ms / wall_ms:.3f}")
     print("host API calls per pair: "
           + ", ".join(f"{k} {v / args.pairs:.1f}" for k, v in api.most_common(6)))
+    print("device copies per pair: "
+          + (", ".join(f"{k} {v / args.pairs:.1f}" for k, v in copies.most_common()) or "none"))
     print("device time by kind (ms, share): " + ", ".join(
         f"{k} {v / 1e3:.3f} ({v / 1e3 / device_ms:.3f})" for k, v in dev_us.most_common()))
     print("top device ops (ms, share): " + "; ".join(
@@ -249,6 +257,7 @@ def main() -> int:
         "gpu": smi, "path": args.path, "pairs": args.pairs, "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms,
         "launches_per_pair": launches / args.pairs, "api_calls": dict(api),
+        "device_copies": dict(copies),
         "device_ms_by_kind": {k: v / 1e3 for k, v in dev_us.items()},
         "top_device_ops_ms": {k: v / 1e3 for k, v in op_us.most_common(8)},
         "stage_ms": stages,

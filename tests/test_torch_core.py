@@ -15,7 +15,7 @@ from hackathonopticalflow_tpu_torch import core as tcore
 # serve paths the port does not have (warp_group_rows: Pallas tile geometry)
 JAX_ONLY = {
     "LKParams": {"use_pallas", "pallas_block", "early_exit", "lanes_packed",
-                 "carve_dma", "iter_margin"},
+                 "carve_dma"},
     "NormalizeParams": set(),
     "FilterParams": set(),
     "FarnebackParams": {"warp_group_rows"},

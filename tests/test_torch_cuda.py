@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import tracker_points
+from chip_smoke import sample_texture, smooth_texture, tracker_points
 
 from hackathonopticalflow_tpu_torch.core import (
     TRACKER_LK,
@@ -29,6 +29,7 @@ from hackathonopticalflow_tpu_torch.flow import tracker as ttr
 from hackathonopticalflow_tpu_torch.ops import farneback as tfb
 from hackathonopticalflow_tpu_torch.ops import lk as tlk
 from hackathonopticalflow_tpu_torch.ops import patch as tpatch
+from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
@@ -173,3 +174,77 @@ def test_tracker_kernel_path_matches_plain(cuda_device, lanes):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     for g, w in zip(hist, want_hist):
         assert torch.equal(g, w)
+
+
+def _lattice_pair(dev, dx, dy, h=270, w=480):
+    """u8 frames a, b with b(x, y) = a(x + dx, y + dy) of chip_smoke.py's
+    lattice texture, on which LK follows a 40 px shift down the pyramid."""
+    lat = smooth_texture(torch.Generator().manual_seed(3), dev, h + 2 * abs(dy) + 60, w + 2 * abs(dx) + 60)
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float64, device=dev),
+        torch.arange(w, dtype=torch.float64, device=dev),
+        indexing="ij",
+    )
+    frame = lambda ox, oy: torch.floor(sample_texture(lat, xx + ox, yy + oy) + 0.5).to(torch.uint8)
+    return frame(0, 0), frame(dx, dy)
+
+
+GRID_CONFIGS = {
+    "blocked": dataclasses.replace(PARAMS, grid_kernel="blocked"),
+    "no_rescue": dataclasses.replace(PARAMS, rescue_large=False),
+    "rescue_levels_1": dataclasses.replace(PARAMS, rescue_levels=1),
+    "exact": LKParams(compute_err=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(GRID_CONFIGS))
+def test_lk_level_new_geometries_kernel_match_plain(cuda_device, config):
+    """The grid-anchored crops (three configurations) and the exact
+    geometry at every level of a (+40, +3) pair, points frozen at level 0
+    included: status and top-lefts identical."""
+    params = GRID_CONFIGS[config]
+    a, b = _lattice_pair(cuda_device, 40, 3)
+    pts_np = measurement_grid(*a.shape, 30)
+    pts = torch.from_numpy(pts_np).to(cuda_device)
+    grid_xy = (np.unique(pts_np[:, 0]).astype(int), np.unique(pts_np[:, 1]).astype(int))
+    prev = tlk.prepare_frame(a, params)
+    nxt = tlk.prepare_frame(b, params)
+    center = pts * 0.25
+    status = torch.ones(pts.shape[0], dtype=torch.bool, device=cuda_device)
+    frozen = 0
+    for level in (2, 1, 0):
+        if level != 2:
+            center = center * 2.0
+        if config == "exact":
+            args, kw, _ = tlk.point_level_inputs(prev, nxt, pts, center, level, params)
+        else:
+            args, kw = tlk.level_inputs(prev, nxt, grid_xy, center, level, params)
+        before = lk_level.launches
+        tl_k, st_k = lk_level(*args, status, **kw)
+        torch.cuda.synchronize()
+        assert lk_level.launches == before + 1
+        tl_p, st_p = lk_level_reference(*args, status, **kw)
+        assert torch.equal(st_k, st_p), level
+        assert torch.equal(tl_k, tl_p), level
+        if kw.get("active0") is not None and level == 0:
+            frozen = int((~kw["active0"]).sum())
+        center, status = tl_p + tlk._halfwin(params, cuda_device), st_p
+    if config in ("blocked", "no_rescue"):
+        assert frozen > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [None, 3])
+def test_gather_rects_kernel_matches_plain(cuda_device, channels):
+    """Identical rects, in bounds and off the plane (wrapped and clamped
+    origins)."""
+    rng = np.random.RandomState(9)
+    shape = (300, 500) if channels is None else (channels, 300, 500)
+    img = torch.from_numpy(rng.uniform(-300, 300, shape).astype(np.float32)).to(cuda_device)
+    tl = torch.from_numpy(rng.randint(-200, 600, (512, 2)).astype(np.int32)).to(cuda_device)
+    before = gather_rects.launches
+    got = gather_rects(img, tl, 118, 128)
+    torch.cuda.synchronize()
+    assert gather_rects.launches == before + 1
+    assert torch.equal(got, gather_rects_reference(img, tl, 118, 128))

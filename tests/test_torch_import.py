@@ -22,9 +22,10 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.add(m.name[len(pkg.__name__) + 1:])
 assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.features",
-        "ops.patch_bilinear", "flow.tracker"} <= names, names
+        "ops.patch_bilinear", "flow.tracker", "ops.gather_rects"} <= names, names
 from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
 from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow_video
@@ -57,6 +58,9 @@ assert flows.shape == (2, 32, 48, 2) and bool(torch.isfinite(flows).all())
 planes = torch.rand((3, 20, 24), generator=g)
 tl = torch.rand((4, 2), generator=g) * 10
 assert torch.equal(patch_bilinear(planes, tl, 5, 5, True), patch_bilinear_reference(planes, tl, 5, 5, True))
+org = torch.tensor([[3, -2], [30, 4]], dtype=torch.int32)
+assert torch.equal(gather_rects(planes, org, 6, 7), gather_rects_reference(planes, org, 6, 7))
+assert gather_rects.launches == 0
 params = TrackerParams(max_tracks=16, features=FeatureParams(max_corners=8, max_candidates=64))
 state, (heads, alive, length) = track_video(
     torch.floor(torch.rand((3, 48, 64), generator=g) * 255).to(torch.uint8), params, device="cpu"

@@ -129,18 +129,9 @@ def test_lk_level_rejects_bad_inputs(bad):
         lk_level(*args.values(), **kw)
 
 
-@pytest.mark.parametrize(
-    "change",
-    [
-        dict(grid_step=None),
-        dict(grid_kernel="blocked"),
-        dict(rescue_large=False),
-        dict(rescue_levels=1),
-    ],
-)
-def test_unported_configs_raise(change):
+def test_unknown_grid_kernel_raises():
     a, b = shifted_pair(6, 0, 0)
     pts, _ = _grid(*a.shape)
-    params = dataclasses.replace(TPARAMS, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    params = dataclasses.replace(TPARAMS, grid_kernel="packed")
+    with pytest.raises(ValueError, match="grid_kernel"):
         tlk.pyr_lk(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(pts), params)

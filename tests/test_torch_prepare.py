@@ -45,6 +45,33 @@ def shifted_pair(seed: int, dx: int, dy: int, h: int = 270, w: int = 480):
     return a, b
 
 
+def lattice_pair(seed: int, dx: int, dy: int, h: int = 270, w: int = 480, cell: int = 6):
+    """u8 frames a, b with b(x, y) = a(x + dx, y + dy) of a coarser texture
+    (chip_smoke.py's): a random lattice of spacing `cell` px blurred by four
+    [1/4, 1/2, 1/4] passes, bilinear between its nodes, scaled to [10, 245].
+    LK follows a (+40, +3) shift on it through the pyramid for about half
+    the grid, so the grid-anchored slabs' envelope is reached."""
+    ly, lx = (h + abs(dy)) // cell + 10, (w + abs(dx)) // cell + 10
+    lat = np.random.RandomState(seed).uniform(0, 1, (ly, lx))
+    for _ in range(4):
+        p = np.pad(lat, 1, mode="edge")
+        lat = 0.25 * p[:-2, 1:-1] + 0.5 * p[1:-1, 1:-1] + 0.25 * p[2:, 1:-1]
+        p = np.pad(lat, 1, mode="edge")
+        lat = 0.25 * p[1:-1, :-2] + 0.5 * p[1:-1, 1:-1] + 0.25 * p[1:-1, 2:]
+    lat = 10.0 + 235.0 * (lat - lat.min()) / (lat.max() - lat.min())
+
+    def frame(ox, oy):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+        u, v = (xx + ox) / cell + 4.0, (yy + oy) / cell + 4.0
+        iu, iv = np.floor(u).astype(int), np.floor(v).astype(int)
+        fu, fv = u - iu, v - iv
+        img = (lat[iv, iu] * (1 - fu) * (1 - fv) + lat[iv, iu + 1] * fu * (1 - fv)
+               + lat[iv + 1, iu] * (1 - fu) * fv + lat[iv + 1, iu + 1] * fu * fv)
+        return np.floor(img + 0.5).astype(np.uint8)
+
+    return frame(0, 0), frame(dx, dy)
+
+
 @pytest.mark.parametrize("n,pad", [(5, 2), (5, 9), (7, 70), (3, 11)])
 def test_reflect101_pad_matches_numpy(n, pad):
     x = np.arange(n * (n + 1), dtype=np.float32).reshape(n, n + 1)

@@ -118,6 +118,22 @@ def test_level_matches_jax(jax_levels, level):
         assert e is None
 
 
+def test_level0_err_ignores_compute_err(jax_levels):
+    """JAX's arbitrary-point branches give the level-0 err whatever
+    compute_err says (ops/lk.py:364-369, 408-413); so does the port."""
+    c_in, s_in, c_ref, s_ref, e_ref = jax_levels["levels"][0]
+    params = dataclasses.replace(convert.lk_params(jax_levels["params"]), compute_err=False)
+    prev = convert.prepared_frame(jax_levels["prev"])
+    nxt = convert.prepared_frame(jax_levels["nxt"])
+    _, s, e = tlk._level_lk(
+        prev, nxt, torch.from_numpy(jax_levels["pts"]), torch.from_numpy(c_in),
+        torch.from_numpy(s_in), 0, params,
+    )
+    both = s.numpy() & s_ref
+    assert (e.numpy()[both] > 0).all()
+    assert np.abs(e.numpy() - e_ref)[both].max() <= TOL_ERR
+
+
 def test_pyr_lk_matches_jax(jax_levels):
     """pyr_lk on the raw frames vs the JAX level chain's end (its
     pyr_lk_prepared): status identical, positions and err within the
