@@ -13,11 +13,14 @@ Phases, in order; any failure exits non-zero:
 1. device check: a CUDA device is required, there is no CPU path;
 2. kernel build: csrc/lk_level.cu, csrc/warp_bilinear.cu,
    csrc/patch_bilinear.cu and csrc/gather_rects.cu -> build/torch_kernels/
-   (one nvcc each, started together, sm_90a);
+   (one nvcc each, started together, sm_90a); for each instantiation of
+   lk_level and patch_bilinear, its registers per thread (checked against
+   the ptxas report beside the library) and resident blocks and warps per
+   SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 3. lk_level kernel vs its plain PyTorch version at L2, L1 and L0 of the
    production params on one 1080p pair: status and top-lefts identical
-   (both sum exactly in float64, so any difference is a fault), and the
-   kernel launched at every level;
+   (both sum exactly, so any difference is a fault), the kernel launched
+   at every level, and its device time per level (graph replay);
 4. sparse main path: lk_grid_flow_video over a 49-frame 1080p clip (48
    pairs) and lk_grid_flow over one pair; finite fields, median endpoint
    error against the known flow < 0.1 px on status-true points, >= 95%
@@ -71,10 +74,14 @@ Phases, in order; any failure exits non-zero:
     a few pairs: as phase 4 (finite, lk_level at every level, EPE, status,
     `good` vs the plain path), and the two 48-pair scans' fps.
 
-Each kernel's record carries its bound: the least time an H100 could take
-for the same work, the larger of the bytes it must move (each input read
-once, each output written once, at HBM_BYTES_PER_S) and the operations it
-does on these inputs (at the peak rate for their type), and, where one
+Each kernel's record carries its device time per shape of the main paths
+(shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
+shape_library_ms) and, for lk_level and patch_bilinear, the registers and
+occupancy of each instantiation (variants), and its bound: the least time
+an H100 could take for the same work, the larger of the bytes it must move
+(each input read once, each output written once, at HBM_BYTES_PER_S) and
+the operations it does on these inputs (at the peak rate for their type),
+and, where one
 PyTorch call computes the same function (F.grid_sample for both bilinear
 kernels, an advanced-indexing gather for gather_rects), that call's device
 time; lk_level has no such call.
@@ -280,6 +287,39 @@ def host_seconds(fn) -> float:
     return time.perf_counter() - t0
 
 
+def merge_records(dst: dict, src: dict) -> None:
+    """dst.update(src), merging the per-shape dicts (shape_*) key by key."""
+    for k, v in src.items():
+        if k.startswith("shape_") and k in dst:
+            dst[k].update(v)
+        else:
+            dst[k] = v
+
+
+def kernel_variants(name: str, lib_path) -> list[dict]:
+    """Each instantiation of csrc/<name>.cu with its registers per thread
+    and resident blocks and warps per SM (the wrapper's kernel_variants():
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    in the library), held against the registers of nvcc's ptxas report
+    (the .log beside the library)."""
+    import importlib
+    import re
+
+    mod = importlib.import_module(f"hackathonopticalflow_tpu_torch.ops.{name}")
+    report = lib_path.with_suffix(".log").read_text()
+    ptxas_regs = {int(r) for r in re.findall(r"Used (\d+) registers", report)}
+    spills = {int(s) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+              for s in pair}
+    out = mod.kernel_variants()
+    for v in out:
+        log(f"  {name} {v['label']}: {v['regs']} registers, {v['local_bytes']} B local, "
+            f"{v['threads']} threads per block, {v['blocks_per_sm']} blocks / {v['warps_per_sm']} warps per SM")
+        if v["regs"] not in ptxas_regs:
+            raise SystemExit(f"{name} {v['label']}: {v['regs']} registers, not in the ptxas report {ptxas_regs}")
+    log(f"  ptxas {name}: registers {sorted(ptxas_regs)}, spill bytes {sorted(spills)}")
+    return out
+
+
 def sparse_phases(dev, clip) -> dict:
     """Phases 3-5: the sparse pathfinder path through lk_level."""
     from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
@@ -301,7 +341,7 @@ def sparse_phases(dev, clip) -> dict:
     center = pts * (1.0 / (1 << params.max_level))
     status = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
     max_err = 0.0
-    level_ms, level_plain_ms = {}, {}
+    level_ms, level_plain_ms, level_bound_ms = {}, {}, {}
     work = [0.0, 0.0, 0.0]
     for level in range(params.max_level, -1, -1):
         if level != params.max_level:
@@ -324,10 +364,11 @@ def sparse_phases(dev, clip) -> dict:
         if launches < 1 or not same_status or not same_tl:
             raise SystemExit(f"L{level}: kernel disagrees with the plain version")
         max_err = max(max_err, err)
-        level_ms[level] = cuda_ms(lambda: lk_level(*args, status, **statics), 20)
-        level_plain_ms[level] = cuda_ms(lambda: lk_level_reference(*args, status, **statics), 3)
-        log(f"L{level}: lk_level {level_ms[level]:.4f} ms, plain {level_plain_ms[level]:.4f} ms, "
-            "bound %.4f ms (%s)" % bound(*level_work))
+        level_ms[level] = graph_ms(lambda: lk_level(*args, status, **statics), 20)
+        level_plain_ms[level] = graph_ms(lambda: lk_level_reference(*args, status, **statics), 3)
+        level_bound_ms[level], _ = bound(*level_work)
+        log(f"L{level}: lk_level {level_ms[level]:.4f} ms, plain {level_plain_ms[level]:.4f} ms "
+            "(graph replay), bound %.4f ms (%s)" % bound(*level_work))
         center = tl_p + lk_mod._halfwin(params, dev)
         status = st_p
 
@@ -384,7 +425,7 @@ def sparse_phases(dev, clip) -> dict:
     log(f"sparse scan {PLAIN_PAIRS} pairs 1080p through lk_level_reference: {plain_fps:.2f} fps "
         f"({plain_s * 1e3:.1f} ms)")
     bound_ms, bound_by = bound(*work)
-    log("lk_level per level (ms, kernel / plain): "
+    log("lk_level per level (device ms, kernel / plain): "
         + ", ".join(f"L{lv} {level_ms[lv]:.4f} / {level_plain_ms[lv]:.4f}" for lv in level_ms)
         + f"; bound of the 3 levels {bound_ms:.4f} ms ({bound_by}: {work[0] / 1e6:.1f} MB, "
         f"{work[1] / 1e9:.3f} GFLOP f32, {work[2] / 1e9:.3f} GFLOP f64)")
@@ -405,6 +446,8 @@ def sparse_phases(dev, clip) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            "shape_ms": {f"production L{lv}": v for lv, v in level_ms.items()},
+            "shape_bound_ms": {f"production L{lv}": v for lv, v in level_bound_ms.items()},
         },
         "scan_fps": fps,
         "plain_scan_fps": plain_fps,
@@ -593,7 +636,7 @@ def tracker_phases(dev, clip) -> dict:
 
     # ---- 9a. lk_level in both crop geometries at the tracker's shapes ----
     lk_max_err = 0.0
-    lk_ms, lk_plain_ms = {}, {}
+    lk_ms, lk_plain_ms, lk_bound_ms = {}, {}, {}
     for geometry, lkp in (("centred", params.lk), ("v1", lk_v1)):
         prev = lk_mod.prepare_frame(clip[0], lkp)
         nxt = lk_mod.prepare_frame(clip[1], lkp)
@@ -612,6 +655,8 @@ def tracker_phases(dev, clip) -> dict:
             err = float(torch.linalg.vector_norm(tl_k - tl_p, dim=-1).max())
             same = bool(torch.equal(tl_k, tl_p)) and bool(torch.equal(st_k, st_p))
             moved = (tl_p - args[3]).abs().amax(dim=-1) > 1e-3
+            key = f"{geometry} L{level}"
+            lk_bound_ms[key], _ = bound(*lk_level_work(args, statics, stats))
             log(f"tracker lk_level {geometry} L{level}: launches {launches}, max |d| {err:.3g} px, "
                 f"identical {same}, good templates {stats['good']}, iterations {stats['iterations']}, "
                 f"band points moved {int(moved[-n_band:].sum())}/{n_band}, "
@@ -619,7 +664,6 @@ def tracker_phases(dev, clip) -> dict:
             if launches != 1 or not same:
                 raise SystemExit(f"tracker lk_level {geometry} L{level}: kernel disagrees with the plain version")
             lk_max_err = max(lk_max_err, err)
-            key = f"{geometry} L{level}"
             lk_ms[key] = graph_ms(lambda: lk_level(*args, status, **statics), 20)
             lk_plain_ms[key] = graph_ms(lambda: lk_level_reference(*args, status, **statics), 3)
             center = tl_p + lk_mod._halfwin(lkp, dev)
@@ -636,7 +680,7 @@ def tracker_phases(dev, clip) -> dict:
         calls[f"tmpl L{level}"] = (planes, (pts * (1.0 / (1 << level)) - halfwin + pad).contiguous(), True)
     calls["err L0"] = (nxt.img_p[0][None].contiguous(), (pts - halfwin + pad).contiguous(), False)
     pb_max_err = 0.0
-    pb_ms, pb_plain_ms, pb_lib_ms = {}, {}, {}
+    pb_ms, pb_plain_ms, pb_lib_ms, pb_bound = {}, {}, {}, {}
     n_bytes = f32_ops = 0.0
     ii = torch.arange(win_h, dtype=torch.float32, device=dev)[None, :, None]
     jj = torch.arange(win_w, dtype=torch.float32, device=dev)[None, None, :]
@@ -665,6 +709,7 @@ def tracker_phases(dev, clip) -> dict:
         call_ops = out_k.numel() * (11 if quantize else 7) + 12 * n
         n_bytes += call_bytes
         f32_ops += call_ops
+        pb_bound[key], _ = bound(call_bytes, call_ops)
         log(f"patch_bilinear {key}: device time (graph replay) {pb_ms[key]:.4f} ms, plain "
             f"{pb_plain_ms[key]:.4f} ms, F.grid_sample {pb_lib_ms[key]:.4f} ms, "
             "bound %.5f ms (%s)" % bound(call_bytes, call_ops))
@@ -743,10 +788,15 @@ def tracker_phases(dev, clip) -> dict:
             "bound_ms": pb_bound_ms,
             "bound_by": pb_bound_by,
             "library_ms": sum(pb_lib_ms.values()),
+            "shape_ms": {f"tracker {k}": v for k, v in pb_ms.items()},
+            "shape_library_ms": {f"tracker {k}": v for k, v in pb_lib_ms.items()},
+            "shape_bound_ms": {f"tracker {k}": v for k, v in pb_bound.items()},
         },
         "lk_level": {
             "launches": lk_n,
             "max_abs_err": lk_max_err,
+            "shape_ms": {f"tracker {k}": v for k, v in lk_ms.items()},
+            "shape_bound_ms": {f"tracker {k}": v for k, v in lk_bound_ms.items()},
             "tracker_ms": sum(v for k, v in lk_ms.items() if k.startswith("centred")),
             "tracker_plain_ms": sum(v for k, v in lk_plain_ms.items() if k.startswith("centred")),
             "tracker_v1_ms": sum(v for k, v in lk_ms.items() if k.startswith("v1")),
@@ -810,6 +860,7 @@ def new_lk_phases(dev, clip) -> dict:
     pairs = {"zoom": (clip[1], clip[0]), "shift_40_3": shifted_pair(dev, 40, 3)}
     max_err = 0.0
     times = {}
+    shape_ms, shape_bound_ms = {}, {}
     for config, params in new_lk_configs().items():
         ms = plain_ms = 0.0
         work = [0.0, 0.0, 0.0]
@@ -848,6 +899,8 @@ def new_lk_phases(dev, clip) -> dict:
                     p_ms = graph_ms(lambda: lk_level_reference(*args, status, **kw), 3)
                     ms, plain_ms = ms + k_ms, plain_ms + p_ms
                     work = [x + y for x, y in zip(work, lv_work)]
+                    shape_ms[f"{config} L{level}"] = k_ms
+                    shape_bound_ms[f"{config} L{level}"], _ = bound(*lv_work)
                     log(f"{config} L{level}: lk_level {k_ms:.4f} ms, plain {p_ms:.4f} ms (graph replay), "
                         "bound %.4f ms (%s)" % bound(*lv_work))
                 center = tl_p + lk_mod._halfwin(params, dev)
@@ -858,7 +911,7 @@ def new_lk_phases(dev, clip) -> dict:
         times[config] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"{config}: lk_level over the 3 levels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"max_abs_err": max_err, "config_ms": times}
+    return {"max_abs_err": max_err, "config_ms": times, "shape_ms": shape_ms, "shape_bound_ms": shape_bound_ms}
 
 def exact_patch_phase(dev, clip) -> dict:
     """Phase 12b: patch_bilinear at the exact path's shapes on the zoom
@@ -883,7 +936,8 @@ def exact_patch_phase(dev, clip) -> dict:
     calls["err L0"] = (prev.img_p[0][None].contiguous(), (pts - halfwin + pad).contiguous(), False)
     ii = torch.arange(win_h, dtype=torch.float32, device=dev)[None, :, None]
     jj = torch.arange(win_w, dtype=torch.float32, device=dev)[None, None, :]
-    out = {"exact_ms": 0.0, "exact_plain_ms": 0.0, "exact_library_ms": 0.0}
+    out = {"exact_ms": 0.0, "exact_plain_ms": 0.0, "exact_library_ms": 0.0,
+           "shape_ms": {}, "shape_library_ms": {}, "shape_bound_ms": {}}
     n_bytes = f32_ops = 0.0
     for key, (planes, tl, quantize) in calls.items():
         got = patch_bilinear(planes, tl, win_h, win_w, quantize)
@@ -903,6 +957,9 @@ def exact_patch_phase(dev, clip) -> dict:
         out["exact_ms"] += k_ms
         out["exact_plain_ms"] += p_ms
         out["exact_library_ms"] += l_ms
+        out["shape_ms"][f"exact {key}"] = k_ms
+        out["shape_library_ms"][f"exact {key}"] = l_ms
+        out["shape_bound_ms"][f"exact {key}"], _ = bound(call_bytes, call_ops)
         log(f"patch_bilinear exact {key} {tuple(got.shape)}: identical {same}, device time (graph replay) "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, F.grid_sample {l_ms:.4f} ms, "
             "bound %.4f ms (%s)" % bound(call_bytes, call_ops))
@@ -1077,6 +1134,8 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}:", line.strip())
+    variants = {name: kernel_variants(name, path) for name, path in zip(names, paths)
+                if name in ("lk_level", "patch_bilinear")}
 
     clip = make_clip(dev, H, W, N_FRAMES)
     log(f"1080p clip: {tuple(clip.shape)} uint8, zoom {ZOOM}/frame")
@@ -1099,12 +1158,14 @@ def main() -> int:
     lk["launches"] = sum(lk["launches_by_path"].values())
     lk["max_abs_err"] = max(lk["max_abs_err"], lk_track.pop("max_abs_err"), new_lk.pop("max_abs_err"))
     lk["replaces"] += ", hackathonopticalflow_tpu/ops/lk_pallas2.py:64"
-    lk.update(lk_track)
-    lk.update(new_lk)
+    merge_records(lk, lk_track)
+    merge_records(lk, new_lk)
+    lk["variants"] = variants["lk_level"]
     pb = track.pop("kernel")
     pb["launches_by_path"]["exact"] = scans.pop("patch_bilinear_launches")["exact"]
     pb["launches"] = sum(pb["launches_by_path"].values())
-    pb.update(exact_pb)
+    merge_records(pb, exact_pb)
+    pb["variants"] = variants["patch_bilinear"]
     record = {"kernels": [lk, dense.pop("kernel"), pb, gather], **sparse, **dense, **track, **scans}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)

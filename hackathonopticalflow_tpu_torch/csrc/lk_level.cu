@@ -11,7 +11,7 @@
 //   - hackathonopticalflow_tpu/ops/lk_pallas.py::lk_iterate (the v1
 //     per-point kernel: square slab, offsets from the clamped slab origin);
 //   - hackathonopticalflow_tpu/ops/carve_pallas.py::gather_rects_panels
-//     (the per-point crop carve): here each block loads its own crop;
+//     (the per-point crop carve): here a crop is only an origin rule;
 //   - the exact path of hackathonopticalflow_tpu/ops/lk.py::_level_lk,
 //     which reads each iteration's window straight from the plane.
 // The TPU layouts (128-point lane blocks, 32-point sublane blocks,
@@ -19,83 +19,198 @@
 // are Mosaic workarounds and are not carried over. The grid kernels'
 // phase A (roll each slab to the crop at the point's coarse init, or
 // freeze the point where the crop does not fit) is the caller's crop
-// origin and `active0` mask: the crop is loaded from the plane directly.
+// origin and `active0` mask.
 //
-// Design: one thread block per point. The block
-//   1. keeps the point's (3, win_h, win_w) template in registers (each
-//      thread owns at most MAXK pixels) and reduces the structure tensor;
-//   2. unless the point is inactive (bad template, or active0 false),
-//      loads its crop of the padded level plane into shared memory,
-//      (win_h+1+2m, win_w+1+2m), or a square of max(win)+2m+2 in the v1
-//      geometry, its origin clamped into the plane as XLA's dynamic_slice
-//      clamps it (a dead point never faults); the exact geometry stages
-//      nothing and reads each window from the plane (L2-resident);
-//   3. runs the Gauss-Newton iterations and stops as soon as the point is
-//      inactive.
-// Every window value and template value lies on the 1/32 grid, so the
-// products in the A and b sums are exact in double precision, and so are
-// the sums: they are accumulated in double, which makes the result
-// independent of the summation order (deterministic, and bit-identical to
-// the plain PyTorch version, which sums in float64 too). Build with
-// -fmad=false: an FMA would round the bilinear blend differently from the
-// plain version before the floor(v*32+0.5)/32 quantization.
+// Design: a team of WARPS warps per point, K window pixels per lane,
+// chosen by the wrapper from the window (ops/lk_level.py launch_shape): an
+// iteration's latency grows with the pixels per lane, so up to 512 px take
+// 2 per lane on up to 8 warps (the tracker's 15 x 15: 4 warps), larger
+// windows 4 or 8 on 8 warps (the grid's 45 x 45: 8 x 8), where fewer
+// reductions per pixel pay. One-warp teams are packed four to a block and
+// never meet a block barrier. The team
+//   1. loads the point's (3, win_h, win_w) template (every lane's loads in
+//      flight at once, evict-first), keeps its gradients in registers as
+//      integers on the 1/32 grid, and reduces the structure tensor and the
+//      template's own share of b;
+//   2. unless the point is inactive (bad template, or active0 false), runs
+//      the Gauss-Newton iterations, each reading its (win_h+1, win_w+1)
+//      window straight from the padded level plane (<= 9 MB at 1080p, it
+//      stays in the 50 MB L2; L1 serves the overlap of neighbouring lanes
+//      and iterations), and exits as soon as the point is inactive.
+// Nothing is staged in shared memory. The crop geometries' window origin
+// in the plane is the clamped crop origin plus the window's clamped offset
+// in the crop, clamp(floor(tl) - crop base, 0, 2m), which names the very
+// pixels the crop would hold; "exact" places its window at floor(tl + pad)
+// as dynamic_slice does. Each geometry keeps its blend: value-first with
+// the fraction tl - floor(tl) in the crop geometries, weights-first in
+// "exact". A lane's pixels are tid, tid + 32*WARPS, ...: one division gives
+// the first one's row and column, and a pointer steps from pixel to pixel.
 //
-// What bounds it on an H100: per point a crop of 19.6 KB (m=12), 29.6 KB
-// (m=20) or 48.4 KB (m=32) of float32 read through L2 (the level plane,
-// <= 9 MB at 1080p, stays resident in the 50 MB L2), then <= 10
-// iterations of 4 loads and ~20 flops per window pixel plus two block
-// reductions. At 2304 points the grid is ~17 waves of blocks over 132 SMs;
-// the block reductions' latency and the crop load dominate, not bandwidth.
-// The exact geometry trades the crop load for 4 L2 reads per window pixel
-// and iteration.
+// Sums: the callers' templates and window values lie on the 1/32 grid
+// (|32 Ix|, |32 Iy| <= 4080 from Scharr's 1/32 scale on u8 frames, 32 x
+// window and template values in [0, 8160]), so each product of the A and b
+// sums, times 1024, is an integer below 2^25. b = sum(fix(v) g) - sum(iw g):
+// the second sum is the template's, taken once, so the image template
+// leaves the registers. A lane sums its <= 8 products in int32, a warp sums
+// them exactly with redux.sync on their 16-bit halves, the team in int64;
+// the total S becomes the float S / 1024 with one rounding. That is the
+// float64 sum of the plain version, bit for bit, in any order. Per warp the
+// partial sums go to shared slots that alternate with the iteration's
+// parity, so an iteration costs one barrier (none in a one-warp team).
+// Build with -fmad=false: an FMA would round the bilinear blend differently
+// from the plain version before the floor(v*32+0.5)/32 quantization.
+//
+// What bounds it on an H100: latency and instruction rate, not bytes. Per
+// point: one round trip for the template (the byte bound: 24 KB of the
+// 1080p grid's 56 MB per level), then <= 10 iterations of 4 L1 reads and
+// ~30 instructions per window pixel and one team reduction. Every
+// instantiation is held to 64 registers (a few spilled words at 8 px per
+// lane), so 32 warps reside on an SM.
+//
+// Measured (chip_smoke.py on an H100 80GB HBM3 at 700.00 W; device time
+// per call, graph replay): the 1080p grid's levels (2304 points, 45 x 45,
+// every geometry) 0.034-0.044 ms against byte bounds of 0.017-0.020 ms;
+// the previous design (a 256-thread block per point, its crop staged in
+// shared memory) took 0.067-0.118 ms in the same run. The tracker's
+// levels (256 points, 15 x 15): 0.0048-0.0062 ms against 0.0004-0.0005
+// ms; the previous design 0.0079-0.0099 ms. ptxas: 50-54 registers at 2
+// px per lane on <= 4 warps, 62 on 8 warps, 64 at 4 and 8 px per lane (8
+// x 8: 16-40 bytes spilled); resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): 4 blocks of 8 warps
+// (32 warps), 9 of 4 warps or 18 of 2 (36).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NT = 256;   // threads per block
-constexpr int NW = NT / 32;
-constexpr int MAXK = 8;   // window pixels per thread: win_w*win_h <= NT*MAXK
 constexpr float CV_SCALE = 1.0f / 1024.0f;
 constexpr float FLT_EPS = 1.1920929e-07f;
 constexpr float MAX_ORIGIN = 1073741824.0f;  // 2^30: exact origins saturate there
+constexpr unsigned FULL = 0xffffffffu;
 
 // geometry codes (ops/lk_level.py GEOMETRIES; "anchored" is CENTRED with
 // active0)
 constexpr int CENTRED = 0, V1 = 1, EXACT = 2;
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+// Threads per block: one team of WARPS warps, or four one-warp teams; and
+// the blocks that must fit on an SM: 32 warps, so at most 64 registers per
+// thread (ptxas spills a few words at 8 px per lane rather than halve the
+// resident warps, which costs more).
+template <int WARPS>
+struct Block {
+  static constexpr int threads = WARPS == 1 ? 128 : 32 * WARPS;
+  static constexpr int min_blocks = 1024 / threads;
+};
+
+// Exact sum over the warp of int32 values whose total may pass 2^31: the
+// low and high 16 bits are summed apart. Every lane receives the total.
+__device__ __forceinline__ long long warp_sum(int v) {
+  const unsigned lo = __reduce_add_sync(FULL, (unsigned)v & 0xffffu);
+  const int hi = __reduce_add_sync(FULL, v >> 16);
+  return ((long long)hi << 16) + (long long)lo;
 }
 
-// Sums v0, v1, v2 over the block; every thread receives the totals.
-template <int NV>
-__device__ __forceinline__ void block_sum(double (&v)[NV], double (*red)[NW]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Sums v[0..NV) over the team; every thread receives the totals. Teams of
+// several warps pass one barrier: the warps' partial sums go to the shared
+// slots of `parity`, which the team's next reduction does not write.
+template <int WARPS, int NV>
+__device__ __forceinline__ void team_sum(const int (&v)[NV], long long (&s)[NV],
+                                         long long (*red)[5][WARPS], int parity,
+                                         int warp, int lane) {
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    double s = warp_sum(v[k]);
-    if (lane == 0) red[k][warp] = s;
+  for (int q = 0; q < NV; ++q) s[q] = warp_sum(v[q]);
+  if (WARPS > 1) {
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) red[parity][q][warp] = s[q];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      long long t = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) t += red[parity][q][w];
+      s[q] = t;
+    }
   }
-  __syncthreads();
+}
+
+// An exact sum of products of 1/32-grid values, S / 1024, rounded to f32:
+// S rounded once (scaling by 2^-10 is exact), as the plain version rounds
+// its float64 sum.
+__device__ __forceinline__ float grid_sum_f32(long long s) {
+  return __fmul_rn(__ll2float_rn(s), 1.0f / 1024.0f);
+}
+
+__device__ __forceinline__ int to_grid(float v) {
+  return __float2int_rn(__fmul_rn(v, 32.0f));
+}
+
+// floor(v * 32 + 0.5): the W_BITS-quantized window value, times 32.
+__device__ __forceinline__ int fix32(float v) {
+  return __float2int_rd(__fadd_rn(__fmul_rn(v, 32.0f), 0.5f));
+}
+
+// A lane's pixels in the window, tid + k * TEAM for k < K: the first one's
+// offset from the window's origin in a plane of row stride wp, the step to
+// the next one (step_wrap where it starts a new row: bit k of `wrap`), and
+// how many lie inside the window.
+struct Slots {
+  int off0, step, step_wrap, nvalid;
+  unsigned wrap;
+};
+
+template <int K>
+__device__ __forceinline__ Slots lane_slots(int tid, int team, int win_w, int win_h, int wp) {
+  const int r0 = tid / win_w, c0 = tid - r0 * win_w;  // the one division
+  const int dr = team / win_w, dc = team - dr * win_w;
+  Slots sl;
+  // a lane past the window starts on its last row (and adds zeros)
+  sl.off0 = min(r0, win_h - 1) * wp + c0;
+  sl.step = dr * wp + dc;
+  sl.step_wrap = sl.step + wp - win_w;
+  sl.wrap = 0;
+  sl.nvalid = 0;
+  int r = r0, c = c0;
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    double s = 0.0;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) s += red[k][w];
-    v[k] = s;
+  for (int k = 0; k < K; ++k) {
+    if (r < win_h) sl.nvalid = k + 1;
+    r += dr;
+    c += dc;
+    if (c >= win_w) {
+      c -= win_w;
+      ++r;
+      sl.wrap |= 1u << k;
+    }
   }
-  __syncthreads();  // red is reused by the next reduction
+  return sl;
 }
 
-__device__ __forceinline__ float fix32(float v) {
-  return floorf(__fadd_rn(__fmul_rn(v, 32.0f), 0.5f)) * (1.0f / 32.0f);
+// sb += sum over the lane's pixels of fix32(blend(s)) * (gx, gy), s the
+// pixel's place in the window at `base`. With few pixels per lane
+// (CLAMP_ROWS) the slots past the window are not skipped: they repeat the
+// last pixel, whose product with their zero gradients adds nothing, and
+// the loop has no branch; with 8 the branch costs fewer registers.
+template <int K, class Blend>
+__device__ __forceinline__ void window_sums(const float* base, const Slots& sl,
+                                            const int (&gx)[K], const int (&gy)[K],
+                                            Blend blend, int (&sb)[2]) {
+  constexpr bool CLAMP_ROWS = K <= 4;
+  const float* s = base + sl.off0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (CLAMP_ROWS || k < sl.nvalid) {
+      const int q = fix32(blend(s));
+      sb[0] += q * gx[k];
+      sb[1] += q * gy[k];
+    }
+    if (k + 1 < sl.nvalid) s += (sl.wrap >> k & 1u) ? sl.step_wrap : sl.step;
+  }
 }
 
-template <int GEOM>
-__global__ void __launch_bounds__(NT) lk_level_kernel(
+template <int WARPS, int K, bool EXACT_BLEND>
+__global__ void __launch_bounds__(Block<WARPS>::threads, Block<WARPS>::min_blocks)
+lk_level_kernel(
     const float* __restrict__ tmpl,      // (N, 3, win_h, win_w)
     const float* __restrict__ plane,     // (hp, wp) padded level plane
     int hp, int wp, int pad,
@@ -105,44 +220,87 @@ __global__ void __launch_bounds__(NT) lk_level_kernel(
     const unsigned char* __restrict__ active0,  // (N,) or null: all active
     float* __restrict__ tl_out,          // (N, 2)
     unsigned char* __restrict__ status_out,     // (N,)
-    int m, int win_w, int win_h, int level_w, int level_h, int max_iters,
-    float eps2, int is_level0, float min_eig_threshold) {
-  extern __shared__ float crop[];
-  __shared__ double red[3][NW];
+    int n, int geometry, int m, int win_w, int win_h, int level_w,
+    int level_h, int max_iters, float eps2, int is_level0,
+    float min_eig_threshold) {
+  constexpr int TEAM = 32 * WARPS;
+  __shared__ long long red[2][5][WARPS];
 
-  const int pt = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int pt = blockIdx.x * (Block<WARPS>::threads / TEAM) + threadIdx.x / TEAM;
+  if (pt >= n) return;  // a whole one-warp team: no barrier follows
+  const int tid = threadIdx.x % TEAM, lane = threadIdx.x & 31, warp = tid >> 5;
   const int npix = win_w * win_h;
-  const int side = max(win_w, win_h) + 2 * m + 2;  // the v1 slab
-  // row stride of what windows are read from: the crop, or the plane
-  const int cw = GEOM == V1 ? side : GEOM == EXACT ? wp : win_w + 1 + 2 * m;
-  const int ch = GEOM == V1 ? side : win_h + 1 + 2 * m;
+  const Slots sl = lane_slots<K>(tid, TEAM, win_w, win_h, wp);
 
-  // ---- 1. template (registers) + structure tensor ----
-  float iw[MAXK], ixw[MAXK], iyw[MAXK];
-  int off[MAXK];  // r * cw + c: the pixel's place in a window row-major
-  double a[3] = {0.0, 0.0, 0.0};
+  // ---- 0. where the window lies at an estimate that passed the oob gate:
+  // the crop's clamped origin in the plane (the gather_rects_panels carve,
+  // as XLA's dynamic_slice clamps it) plus the window's clamped offset in
+  // the crop, counted from the unclamped origin, or in v1 from the clamped
+  // one (lk_pallas.py:106-107); in "exact" floor(tl + pad), placed as
+  // dynamic_slice places it. Also the blend fractions.
+  int ox0 = 0, oy0 = 0, cbx = 0, cby = 0;
+  if (!EXACT_BLEND) {
+    const int side = max(win_w, win_h) + 2 * m + 2;  // the v1 slab
+    const int cw = geometry == V1 ? side : win_w + 1 + 2 * m;
+    const int ch = geometry == V1 ? side : win_h + 1 + 2 * m;
+    ox0 = min(max(crop_org[2 * pt] + pad, 0), wp - cw);
+    oy0 = min(max(crop_org[2 * pt + 1] + pad, 0), hp - ch);
+    cbx = geometry == V1 ? ox0 - pad : crop_org[2 * pt];
+    cby = geometry == V1 ? oy0 - pad : crop_org[2 * pt + 1];
+  }
+  auto locate = [&](float x, float y, float& ax, float& ay) -> const float* {
+    if (EXACT_BLEND) {
+      const float px = __fadd_rn(x, (float)pad), py = __fadd_rn(y, (float)pad);
+      const float fx = floorf(px), fy = floorf(py);
+      ax = __fsub_rn(px, fx);
+      ay = __fsub_rn(py, fy);
+      int ix = (int)fminf(fmaxf(fx, -MAX_ORIGIN), MAX_ORIGIN);
+      int iy = (int)fminf(fmaxf(fy, -MAX_ORIGIN), MAX_ORIGIN);
+      if (ix < 0) ix += wp;
+      if (iy < 0) iy += hp;
+      ix = min(max(ix, 0), wp - win_w - 1);
+      iy = min(max(iy, 0), hp - win_h - 1);
+      return plane + (size_t)iy * wp + ix;
+    }
+    const float fx = floorf(x), fy = floorf(y);
+    ax = __fsub_rn(x, fx);
+    ay = __fsub_rn(y, fy);
+    const int ox = min(max((int)fx - cbx, 0), 2 * m);  // fx passed the oob gate
+    const int oy = min(max((int)fy - cby, 0), 2 * m);
+    return plane + (size_t)(oy0 + oy) * wp + ox0 + ox;
+  };
+
+  // ---- 1. template gradients (registers, x32) + structure tensor ----
+  // b = sum (fix(v) - iw) g = sum fix(v) g - sum iw g: the second sum is
+  // the point's constant (a[3], a[4]), so the image template stays out of
+  // the registers
+  int gx[K], gy[K];
+  int sa[5] = {0, 0, 0, 0, 0};  // Ix Ix, Ix Iy, Iy Iy, iw Ix, iw Iy (x 1024)
   const float* t = tmpl + (size_t)pt * 3 * npix;
 #pragma unroll
-  for (int k = 0; k < MAXK; ++k) {
-    const int p = tid + k * NT;
-    if (p < npix) {
-      iw[k] = t[p];
-      ixw[k] = t[npix + p];
-      iyw[k] = t[2 * npix + p];
-      off[k] = (p / win_w) * cw + (p % win_w);
-    } else {
-      iw[k] = ixw[k] = iyw[k] = 0.0f;
-      off[k] = 0;
-    }
-    a[0] += (double)ixw[k] * (double)ixw[k];
-    a[1] += (double)ixw[k] * (double)iyw[k];
-    a[2] += (double)iyw[k] * (double)iyw[k];
+  for (int k = 0; k < K; ++k) {
+    // every slot loads (a slot past the window its last pixel, then drops
+    // it), so that all of a lane's loads are in flight at once
+    const int p = tid + k * TEAM, pc = min(p, npix - 1);
+    // (read once: evict-first, so the plane stays in L2)
+    const float tw = __ldcs(t + pc), tx = __ldcs(t + npix + pc), ty = __ldcs(t + 2 * npix + pc);
+    const bool in = p < npix;
+    const int iwk = in ? to_grid(tw) : 0;
+    const int gxk = in ? to_grid(tx) : 0;
+    const int gyk = in ? to_grid(ty) : 0;
+    gx[k] = gxk;
+    gy[k] = gyk;
+    sa[0] += gxk * gxk;
+    sa[1] += gxk * gyk;
+    sa[2] += gyk * gyk;
+    sa[3] += iwk * gxk;
+    sa[4] += iwk * gyk;
   }
-  block_sum<3>(a, red);
-  const float a11 = __fmul_rn((float)a[0], CV_SCALE);
-  const float a12 = __fmul_rn((float)a[1], CV_SCALE);
-  const float a22 = __fmul_rn((float)a[2], CV_SCALE);
+  long long a[5];
+  team_sum<WARPS, 5>(sa, a, red, 1, warp, lane);
+  const float a11 = __fmul_rn(grid_sum_f32(a[0]), CV_SCALE);
+  const float a12 = __fmul_rn(grid_sum_f32(a[1]), CV_SCALE);
+  const float a22 = __fmul_rn(grid_sum_f32(a[2]), CV_SCALE);
   const float det = a11 * a22 - a12 * a12;
   const float dd = a11 - a22;
   const float min_eig =
@@ -159,22 +317,6 @@ __global__ void __launch_bounds__(NT) lk_level_kernel(
   const bool live = !bad && (active0 == nullptr || active0[pt] != 0);
 
   if (live) {
-    // ---- 2. the point's crop (the gather_rects_panels carve) ----
-    int cbx = 0, cby = 0;
-    if (GEOM != EXACT) {
-      const int ox0 = min(max(crop_org[2 * pt] + pad, 0), wp - cw);
-      const int oy0 = min(max(crop_org[2 * pt + 1] + pad, 0), hp - ch);
-      // window offsets count from the unclamped origin, or in v1 from the
-      // clamped one (lk_pallas.py:106-107)
-      cbx = GEOM == V1 ? ox0 - pad : crop_org[2 * pt];
-      cby = GEOM == V1 ? oy0 - pad : crop_org[2 * pt + 1];
-      for (int i = tid; i < cw * ch; i += NT) {
-        const int r = i / cw, c = i - r * cw;
-        crop[i] = plane[(size_t)(oy0 + r) * wp + ox0 + c];
-      }
-      __syncthreads();
-    }
-
     // ---- 3. Gauss-Newton iterations ----
     float pdx = 0.0f, pdy = 0.0f;
     for (int j = 0; j < max_iters; ++j) {
@@ -184,58 +326,37 @@ __global__ void __launch_bounds__(NT) lk_level_kernel(
         if (is_level0) status = false;
         break;
       }
-      double b[2] = {0.0, 0.0};
-      if (GEOM == EXACT) {
-        // JAX extract_patches(plane, tl + pad): origin floor(tl + pad),
-        // placed as dynamic_slice places it; weights formed first
-        // (blend_bilinear), as csrc/patch_bilinear.cu
-        const float px = __fadd_rn(tlx, (float)pad), py = __fadd_rn(tly, (float)pad);
-        const float fx = floorf(px), fy = floorf(py);
-        const float ax = __fsub_rn(px, fx), ay = __fsub_rn(py, fy);
-        int ix = (int)fminf(fmaxf(fx, -MAX_ORIGIN), MAX_ORIGIN);
-        int iy = (int)fminf(fmaxf(fy, -MAX_ORIGIN), MAX_ORIGIN);
-        if (ix < 0) ix += wp;
-        if (iy < 0) iy += hp;
-        ix = min(max(ix, 0), wp - win_w - 1);
-        iy = min(max(iy, 0), hp - win_h - 1);
-        const float bx = __fsub_rn(1.0f, ax), by = __fsub_rn(1.0f, ay);
+      int sb[2] = {0, 0};
+      float ax, ay;
+      const float* base = locate(tlx, tly, ax, ay);
+      const float bx = __fsub_rn(1.0f, ax), by = __fsub_rn(1.0f, ay);
+      if (EXACT_BLEND) {
+        // weights formed first (JAX blend_bilinear), as csrc/patch_bilinear.cu
         const float w00 = __fmul_rn(bx, by), w10 = __fmul_rn(ax, by);
         const float w01 = __fmul_rn(bx, ay), w11 = __fmul_rn(ax, ay);
-        const float* base = plane + (size_t)iy * wp + ix;
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          const float* s = base + off[k];
-          float v = __fmul_rn(__ldg(s), w00);
-          v = __fadd_rn(v, __fmul_rn(__ldg(s + 1), w10));
-          v = __fadd_rn(v, __fmul_rn(__ldg(s + cw), w01));
-          v = __fadd_rn(v, __fmul_rn(__ldg(s + cw + 1), w11));
-          const double diff = (double)__fsub_rn(fix32(v), iw[k]);
-          // pixels past npix carry zero gradients and add exact zeros
-          b[0] += diff * (double)ixw[k];
-          b[1] += diff * (double)iyw[k];
-        }
+        window_sums<K>(base, sl, gx, gy,
+                       [&](const float* p) {
+                         float v = __fmul_rn(__ldg(p), w00);
+                         v = __fadd_rn(v, __fmul_rn(__ldg(p + 1), w10));
+                         v = __fadd_rn(v, __fmul_rn(__ldg(p + wp), w01));
+                         return __fadd_rn(v, __fmul_rn(__ldg(p + wp + 1), w11));
+                       },
+                       sb);
       } else {
-        const float ax = tlx - ixf, ay = tly - iyf;
-        const float bx = 1.0f - ax, by = 1.0f - ay;
-        const int ox = min(max((int)ixf - cbx, 0), 2 * m);
-        const int oy = min(max((int)iyf - cby, 0), 2 * m);
-        const float* base = crop + oy * cw + ox;
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          const float* s = base + off[k];
-          float v = __fmul_rn(__fmul_rn(s[0], bx), by);
-          v = __fadd_rn(v, __fmul_rn(__fmul_rn(s[1], ax), by));
-          v = __fadd_rn(v, __fmul_rn(__fmul_rn(s[cw], bx), ay));
-          v = __fadd_rn(v, __fmul_rn(__fmul_rn(s[cw + 1], ax), ay));
-          const double diff = (double)__fsub_rn(fix32(v), iw[k]);
-          // pixels past npix carry zero gradients and add exact zeros
-          b[0] += diff * (double)ixw[k];
-          b[1] += diff * (double)iyw[k];
-        }
+        // value first (the Pallas kernels' _blend)
+        window_sums<K>(base, sl, gx, gy,
+                       [&](const float* p) {
+                         float v = __fmul_rn(__fmul_rn(__ldg(p), bx), by);
+                         v = __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + 1), ax), by));
+                         v = __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + wp), bx), ay));
+                         return __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + wp + 1), ax), ay));
+                       },
+                       sb);
       }
-      block_sum<2>(b, red);
-      const float b1 = __fmul_rn((float)b[0], CV_SCALE);
-      const float b2 = __fmul_rn((float)b[1], CV_SCALE);
+      long long b[2];
+      team_sum<WARPS, 2>(sb, b, red, j & 1, warp, lane);
+      const float b1 = __fmul_rn(grid_sum_f32(b[0] - a[3]), CV_SCALE);
+      const float b2 = __fmul_rn(grid_sum_f32(b[1] - a[4]), CV_SCALE);
       const float dx = (a12 * b2 - a22 * b1) * inv_det;
       const float dy = (a12 * b1 - a11 * b2) * inv_det;
       tlx += dx;
@@ -260,68 +381,64 @@ __global__ void __launch_bounds__(NT) lk_level_kernel(
   }
 }
 
-template <int GEOM>
-int launch(const float* tmpl, const float* plane, int hp, int wp, int pad,
-           const float* tl0, const int* crop_org, const unsigned char* status0,
-           const unsigned char* active0, float* tl_out,
-           unsigned char* status_out, int n, int m, int win_w, int win_h,
-           int level_w, int level_h, int max_iters, float eps2, int is_level0,
-           float min_eig_threshold, cudaStream_t stream) {
-  const size_t side = (size_t)((win_w > win_h ? win_w : win_h) + 2 * m + 2);
-  const size_t smem =
-      GEOM == EXACT ? 0
-      : GEOM == V1  ? sizeof(float) * side * side
-                    : sizeof(float) * (size_t)(win_w + 1 + 2 * m) *
-                          (size_t)(win_h + 1 + 2 * m);
-  // raise the kernel's shared-memory limit only when a launch needs more,
-  // so that launches captured into a CUDA graph make no such call
-  static size_t smem_limit = 0;
-  if (smem > smem_limit) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lk_level_kernel<GEOM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_limit = smem;
+using KernelFn = decltype(&lk_level_kernel<1, 2, false>);
+
+// The instantiation for (warps, k) and the blend, and its threads per
+// block; null for a shape ops/lk_level.py::LAUNCH_SHAPES does not name.
+KernelFn pick(int warps, int k, bool exact, int* threads) {
+#define LK_SHAPE(W, KK)                                                   \
+  if (warps == W && k == KK) {                                            \
+    *threads = Block<W>::threads;                                        \
+    return exact ? lk_level_kernel<W, KK, true> : lk_level_kernel<W, KK, false>; \
   }
-  lk_level_kernel<GEOM><<<n, NT, smem, stream>>>(
-      tmpl, plane, hp, wp, pad, tl0, crop_org, status0, active0, tl_out,
-      status_out, m, win_w, win_h, level_w, level_h, max_iters, eps2,
-      is_level0, min_eig_threshold);
-  return (int)cudaGetLastError();
+  LK_SHAPE(1, 2)
+  LK_SHAPE(2, 2)
+  LK_SHAPE(4, 2)
+  LK_SHAPE(8, 2)
+  LK_SHAPE(8, 4)
+  LK_SHAPE(8, 8)
+#undef LK_SHAPE
+  return nullptr;
 }
 
 }  // namespace
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// geometry: CENTRED (0), V1 (1) or EXACT (2); active0 may be null.
+// geometry: CENTRED (0), V1 (1) or EXACT (2); active0 may be null;
+// (warps, k): the team shape, one of ops/lk_level.py::LAUNCH_SHAPES with
+// 32 * warps * k >= win_w * win_h.
 extern "C" int lk_level_launch(
     const float* tmpl, const float* plane, int hp, int wp, int pad,
     const float* tl0, const int* crop_org, const unsigned char* status0,
     const unsigned char* active0, float* tl_out, unsigned char* status_out,
     int n, int m, int win_w, int win_h, int level_w, int level_h,
     int max_iters, float eps2, int is_level0, float min_eig_threshold,
-    int geometry, void* stream) {
+    int geometry, int warps, int k, void* stream) {
+  if (geometry < CENTRED || geometry > EXACT) return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  const KernelFn fn = pick(warps, k, geometry == EXACT, &threads);
+  if (fn == nullptr || 32 * warps * k < win_w * win_h) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (geometry) {
-    case CENTRED:
-      return launch<CENTRED>(tmpl, plane, hp, wp, pad, tl0, crop_org, status0,
-                             active0, tl_out, status_out, n, m, win_w, win_h,
-                             level_w, level_h, max_iters, eps2, is_level0,
-                             min_eig_threshold, s);
-    case V1:
-      return launch<V1>(tmpl, plane, hp, wp, pad, tl0, crop_org, status0,
-                        active0, tl_out, status_out, n, m, win_w, win_h,
-                        level_w, level_h, max_iters, eps2, is_level0,
-                        min_eig_threshold, s);
-    case EXACT:
-      return launch<EXACT>(tmpl, plane, hp, wp, pad, tl0, crop_org, status0,
-                           active0, tl_out, status_out, n, m, win_w, win_h,
-                           level_w, level_h, max_iters, eps2, is_level0,
-                           min_eig_threshold, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int teams = threads / (32 * warps);
+  fn<<<(n + teams - 1) / teams, threads, 0, (cudaStream_t)stream>>>(
+      tmpl, plane, hp, wp, pad, tl0, crop_org, status0, active0, tl_out,
+      status_out, n, geometry, m, win_w, win_h, level_w, level_h, max_iters,
+      eps2, is_level0, min_eig_threshold);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int lk_level_max_pixels() { return NT * MAXK; }
+// The instantiation's registers and local bytes per thread, threads per
+// block and resident blocks per SM.
+extern "C" int lk_level_occupancy(int warps, int k, int exact, int* threads,
+                                  int* blocks_per_sm, int* regs,
+                                  int* local_bytes) {
+  const KernelFn fn = pick(warps, k, exact != 0, threads);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                            *threads, 0);
+}

@@ -1,5 +1,6 @@
 // patch_bilinear: bilinear windows of C planes at N fractional top-lefts on
-// Hopper (the LK tracker's template and residual windows).
+// Hopper (the LK tracker's template and residual windows, the exact LK
+// path's templates).
 //
 // Replaces the TPU (Pallas) kernel
 //   hackathonopticalflow_tpu/ops/carve_pallas.py::gather_rects_panels_multi
@@ -23,70 +24,124 @@
 // the library is built with -fmad=false), as the separate PyTorch ops of
 // patch_bilinear_reference round them: the two agree bit for bit.
 //
-// Design: one block per point. The block copies the point's C crops into
-// shared memory (each plane's crop rows are contiguous, so the loads
-// coalesce), then each thread blends outputs out of shared memory.
+// Design: no shared memory. A block is (lanes, points): threadIdx.y picks
+// one of `points` points, threadIdx.x one of the `lanes` threads that share
+// its window, blockIdx.y the channel. Each thread computes the point's
+// origin and four weights once, then EPT outputs of the window's flattened
+// (size_h, size_w) plane per pass, elements tx, tx + lanes, ...: one
+// division gives the first element's row and column, and each next one
+// steps by (lanes / size_w, lanes % size_w). Its four corners are __ldg
+// reads of the plane (the planes, <= 28 MB at 1080p L0, stay in the 50 MB
+// L2; L1 serves the overlap of neighbouring outputs); every element loads
+// (one past the window its last row's), so all of a thread's loads are in
+// flight at once, and only the store is conditional. The store lands next
+// to its neighbour lane's, so a warp writes 128 contiguous bytes, streamed
+// (evict-first) so that the output does not push the planes out of L2.
+// `lanes` is the smallest power of two in [32, 256] that covers the window
+// in one pass: windows of <= 512 px at 2 outputs per thread, which keeps a
+// small call to one round trip (the tracker's 15 x 15: 128 lanes), larger
+// ones at 8 (45 x 45: 256 lanes). Windows of <= 64 px pack 128 / lanes
+// points into a block.
 //
-// What bounds it on an H100: memory latency, not bandwidth or arithmetic.
-// At the tracker's shapes (N = 256, C = 3, 16 x 16 crops) it reads 786 KB
-// of crops and writes 691 KB, 0.44 us at 3.35 TB/s, and does ~7 flops per
-// output; the launch and one round trip to L2/HBM per block set its time.
+// What bounds it on an H100: bytes, the output stream. At the exact
+// scan's templates (2304 x 3 x 45 x 45) it writes 56 MB, 0.0167 ms at
+// 3.35 TB/s, and reads the planes once; at the tracker's 256 x 3 x 15 x
+// 15, 0.7 MB, the launch and one round trip set its time.
+//
+// Measured (chip_smoke.py on an H100 80GB HBM3 at 700.00 W; device time
+// per call, graph replay): the exact scan's templates at L2 / L1 / L0
+// 0.0316 / 0.0323 / 0.0442 ms against byte bounds of 0.0175 / 0.0191 /
+// 0.0252 ms and F.grid_sample's 0.0462 / 0.0528 / 0.0586 ms (the previous
+// design, a block per point staging its crops in shared memory,
+// 0.071-0.074 ms in the same run); the tracker's calls 0.0019-0.0022
+// ms (previous design 0.0024-0.0035, F.grid_sample 0.0020-0.0027).
+// ptxas: 32 registers, no spills; 64 warps resident per SM.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NT = 128;  // threads per block
+constexpr int MAX_LANES = 256;  // threads per point
+constexpr int MIN_BLOCK = 128;  // threads per block, at least
 constexpr float MAX_ORIGIN = 1073741824.0f;  // 2^30: origins saturate there
 
-__global__ void __launch_bounds__(NT) patch_bilinear_kernel(
+// EPT: outputs per thread per pass (2 for windows of <= 512 px, else 8).
+template <int EPT>
+__global__ void __launch_bounds__(MAX_LANES) patch_bilinear_kernel(
     const float* __restrict__ planes,  // (C, hp, wp)
     int c, int hp, int wp,
     const float* __restrict__ tl,      // (N, 2) top-left [x, y]
-    int size_h, int size_w, int quantize,
+    int n, int size_h, int size_w, int quantize,
     float* __restrict__ out) {         // (N, C, size_h, size_w)
-  extern __shared__ float crop[];      // (C, size_h + 1, size_w + 1)
-  const int pt = blockIdx.x;
-  const int cw = size_w + 1, ch = size_h + 1;
+  const int pt = blockIdx.x * blockDim.y + threadIdx.y;
+  if (pt >= n) return;
+  const int chan = blockIdx.y;
+  const int tx = threadIdx.x, lanes = blockDim.x;
 
-  const float x = tl[2 * pt], y = tl[2 * pt + 1];
+  const float x = __ldg(tl + 2 * pt), y = __ldg(tl + 2 * pt + 1);
   const float fx = floorf(x), fy = floorf(y);
   const float ax = __fsub_rn(x, fx), ay = __fsub_rn(y, fy);
   int ix = (int)fminf(fmaxf(fx, -MAX_ORIGIN), MAX_ORIGIN);
   int iy = (int)fminf(fmaxf(fy, -MAX_ORIGIN), MAX_ORIGIN);
   if (ix < 0) ix += wp;
   if (iy < 0) iy += hp;
-  ix = min(max(ix, 0), wp - cw);
-  iy = min(max(iy, 0), hp - ch);
-
-  const int per_plane = ch * cw;
-  for (int i = threadIdx.x; i < c * per_plane; i += NT) {
-    const int k = i / per_plane;
-    const int rem = i - k * per_plane;
-    const int r = rem / cw;
-    crop[i] = planes[((size_t)k * hp + iy + r) * wp + ix + (rem - r * cw)];
-  }
-  __syncthreads();
-
+  ix = min(max(ix, 0), wp - size_w - 1);
+  iy = min(max(iy, 0), hp - size_h - 1);
   const float bx = __fsub_rn(1.0f, ax), by = __fsub_rn(1.0f, ay);
   const float w00 = __fmul_rn(bx, by);
   const float w10 = __fmul_rn(ax, by);
   const float w01 = __fmul_rn(bx, ay);
   const float w11 = __fmul_rn(ax, ay);
+
+  const float* src = planes + ((size_t)chan * hp + iy) * wp + ix;
   const int per_out = size_h * size_w;
-  float* o = out + (size_t)pt * c * per_out;
-  for (int i = threadIdx.x; i < c * per_out; i += NT) {
-    const int k = i / per_out;
-    const int rem = i - k * per_out;
-    const int r = rem / size_w;
-    const float* s = crop + k * per_plane + r * cw + (rem - r * size_w);
-    float v = __fmul_rn(s[0], w00);
-    v = __fadd_rn(v, __fmul_rn(s[1], w10));
-    v = __fadd_rn(v, __fmul_rn(s[cw], w01));
-    v = __fadd_rn(v, __fmul_rn(s[cw + 1], w11));
-    if (quantize) v = floorf(__fadd_rn(__fmul_rn(v, 32.0f), 0.5f)) * (1.0f / 32.0f);
-    o[i] = v;
+  float* o = out + ((size_t)pt * c + chan) * per_out;
+  int r = tx / size_w, col = tx - r * size_w;  // element tx
+  const int dr = lanes / size_w, dc = lanes - dr * size_w;
+  for (int first = tx; first < per_out; first += lanes * EPT) {
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      // every element loads (one past the window its last row's), so that
+      // all of a thread's loads are in flight at once; only stores are
+      // conditional
+      const int i = first + e * lanes;
+      const float* s = src + (size_t)min(r, size_h - 1) * wp + col;
+      float v = __fmul_rn(__ldg(s), w00);
+      v = __fadd_rn(v, __fmul_rn(__ldg(s + 1), w10));
+      v = __fadd_rn(v, __fmul_rn(__ldg(s + wp), w01));
+      v = __fadd_rn(v, __fmul_rn(__ldg(s + wp + 1), w11));
+      if (quantize) v = floorf(__fadd_rn(__fmul_rn(v, 32.0f), 0.5f)) * (1.0f / 32.0f);
+      if (i < per_out) __stcs(o + i, v);  // streamed: the planes keep L2
+      r += dr;
+      col += dc;
+      if (col >= size_w) {
+        col -= size_w;
+        ++r;
+      }
+    }
   }
+}
+
+// Outputs per thread per pass: 2 where the lanes can spread the window
+// that thin (one round trip for a small call), else 8.
+constexpr int SMALL_WINDOW = 2 * MAX_LANES;
+
+// The block of a window of size_h x size_w: (lanes, points per block).
+// `lanes` is the smallest power of two in [32, 256] that covers the window
+// in one pass.
+dim3 block_shape(int size_h, int size_w) {
+  const int per_out = size_h * size_w;
+  const int ept = per_out <= SMALL_WINDOW ? 2 : 8;
+  int lanes = 32;
+  while (lanes < MAX_LANES && lanes * ept < per_out) lanes *= 2;
+  const int points = lanes < MIN_BLOCK ? MIN_BLOCK / lanes : 1;
+  return dim3(lanes, points);
+}
+
+using KernelFn = decltype(&patch_bilinear_kernel<2>);
+
+KernelFn pick(int size_h, int size_w) {
+  return size_h * size_w <= SMALL_WINDOW ? patch_bilinear_kernel<2> : patch_bilinear_kernel<8>;
 }
 
 }  // namespace
@@ -96,21 +151,30 @@ extern "C" int patch_bilinear_launch(const float* planes, int c, int hp,
                                      int wp, const float* tl, int n,
                                      int size_h, int size_w, int quantize,
                                      float* out, void* stream) {
-  if (c < 1 || size_h < 1 || size_w < 1 || hp < size_h + 1 || wp < size_w + 1)
+  if (c < 1 || c > 65535 || size_h < 1 || size_w < 1 || hp < size_h + 1 ||
+      wp < size_w + 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)c * (size_h + 1) * (size_w + 1);
-  // raise the kernel's shared-memory limit only when a launch needs more,
-  // so that launches captured into a CUDA graph make no such call
-  static size_t smem_limit = 0;
-  if (smem > smem_limit) {
-    cudaError_t err = cudaFuncSetAttribute(
-        patch_bilinear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_limit = smem;
-  }
-  patch_bilinear_kernel<<<n, NT, smem, (cudaStream_t)stream>>>(
-      planes, c, hp, wp, tl, size_h, size_w, quantize, out);
+  const dim3 block = block_shape(size_h, size_w);
+  const dim3 grid((n + block.y - 1) / block.y, c);
+  pick(size_h, size_w)<<<grid, block, 0, (cudaStream_t)stream>>>(
+      planes, c, hp, wp, tl, n, size_h, size_w, quantize, out);
   return (int)cudaGetLastError();
+}
+
+// The kernel's registers and local bytes per thread, and the threads per
+// block and resident blocks per SM at a size_h x size_w window.
+extern "C" int patch_bilinear_occupancy(int size_h, int size_w, int* threads,
+                                        int* blocks_per_sm, int* regs,
+                                        int* local_bytes) {
+  const dim3 block = block_shape(size_h, size_w);
+  const KernelFn fn = pick(size_h, size_w);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  *threads = (int)(block.x * block.y);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                            *threads, 0);
 }

@@ -43,10 +43,16 @@ lk_pallas.py and lk.py bodies): per point,
   inactive points keep their estimate.
 
 The A and b sums are taken in float64: every term lies on the 1/1024 grid
-and is exact there, so the sums are exact and the kernel, which sums in
-double too, reproduces this version bit for bit in any summation order.
-(JAX's kernels and exact path sum in float32, so the port meets them to a
-tolerance.)
+and is exact there, so the sums are exact and the kernel reproduces this
+version bit for bit in any summation order. The kernel sums the same
+terms as integers (x 1024), which holds on what every caller hands it:
+templates on the 1/32 grid (`extract_grid_templates`,
+`extract_patches_multi(quantize=True)`), gradients within +-128 (Scharr's
+1/32 scale on u8 frames) and image values in [0, 255]. (JAX's kernels and
+exact path sum in float32, so the port meets them to a tolerance.)
+
+The kernel runs a team of warps per point, sized to the window by
+`launch_shape`.
 """
 
 from __future__ import annotations
@@ -74,10 +80,32 @@ def _sum64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 # the kernel's geometry codes ("anchored" is "centred" with active0)
 GEOMETRIES = {"centred": 0, "anchored": 0, "v1": 1, "exact": 2}
 
+# The kernel's team shapes, (warps per point, window pixels per lane), in
+# order of their 32 * warps * k pixel slots; csrc/lk_level.cu instantiates
+# exactly these. An iteration's latency grows with the pixels per lane, so
+# windows of up to 512 px take 2 per lane on up to 8 warps (the tracker's
+# 15 x 15: 4 warps); larger ones 4 or 8 on 8 warps, where fewer
+# reductions per pixel pay (the grid's 45 x 45: 8 x 8).
+LAUNCH_SHAPES = ((1, 2), (2, 2), (4, 2), (8, 2), (8, 4), (8, 8))
+MAX_PIXELS = 32 * 8 * 8
+
+
+def launch_shape(win_w: int, win_h: int) -> tuple[int, int]:
+    """(warps per point, pixels per lane) of the kernel's team for a
+    win_w x win_h window: the smallest shape of LAUNCH_SHAPES whose slots
+    hold the window (at most max(64, 2 * pixels) slots). Raises past
+    MAX_PIXELS."""
+    npix = win_w * win_h
+    for warps, k in LAUNCH_SHAPES:
+        if 32 * warps * k >= npix:
+            return warps, k
+    raise ValueError(f"window {win_w}x{win_h} exceeds the kernel's budget of {MAX_PIXELS} pixels")
+
 
 def crop_size(geometry: str, m: int, win_w: int, win_h: int) -> tuple[int, int]:
-    """(width, height) of a point's crop in `geometry`; (0, 0) for "exact",
-    which stages none."""
+    """(width, height) of a point's crop in `geometry`: the plane region its
+    windows may read (the kernel reads them from the plane; nothing is
+    staged); (0, 0) for "exact", which has no crop."""
     if geometry in ("centred", "anchored"):
         return win_w + 1 + 2 * m, win_h + 1 + 2 * m
     if geometry == "v1":
@@ -219,12 +247,13 @@ def _lib():
         fn.argtypes = [
             p, p, i, i, i, p, p, p, p, p, p,  # tmpl .. status_out
             i, i, i, i, i, i, i, f, i, f,  # n .. min_eig_threshold
-            i,  # geometry code
+            i, i, i,  # geometry code, warps, k
             p,  # stream
         ]
         fn.restype = ctypes.c_int
-        lib.lk_level_max_pixels.argtypes = []
-        lib.lk_level_max_pixels.restype = ctypes.c_int
+        occ = lib.lk_level_occupancy
+        occ.argtypes = [i, i, i, p, p, p, p]
+        occ.restype = ctypes.c_int
     return lib
 
 
@@ -287,9 +316,8 @@ def lk_level(
     if dev.type != "cuda":
         raise ValueError(f"lk_level runs on cpu or cuda tensors, not {dev.type}")
 
+    warps, k = launch_shape(win_w, win_h)
     lib = _lib()
-    if win_w * win_h > lib.lk_level_max_pixels():
-        raise ValueError(f"window {win_w}x{win_h} exceeds the kernel's pixel budget")
     tl_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     st_out = torch.empty((n,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
@@ -300,7 +328,7 @@ def lk_level(
             None if active0 is None else active0.data_ptr(),
             tl_out.data_ptr(), st_out.data_ptr(),
             n, m, win_w, win_h, level_w, level_h, max_iters, eps2,
-            int(is_level0), min_eig_threshold, GEOMETRIES[geometry], stream,
+            int(is_level0), min_eig_threshold, GEOMETRIES[geometry], warps, k, stream,
         )
     if rc != 0:
         raise RuntimeError(f"lk_level launch failed: cudaError {rc}")
@@ -309,3 +337,24 @@ def lk_level(
 
 
 lk_level.launches = 0
+
+
+def kernel_variants() -> list[dict]:
+    """Registers per thread, threads per block and resident blocks and
+    warps per SM of each instantiation of the kernel (each launch shape,
+    crop and exact blends). Needs the CUDA toolkit and a GPU."""
+    lib = _lib()
+    out = []
+    for warps, k in LAUNCH_SHAPES:
+        for exact in (False, True):
+            vals = [ctypes.c_int() for _ in range(4)]
+            rc = lib.lk_level_occupancy(warps, k, int(exact), *[ctypes.addressof(v) for v in vals])
+            if rc != 0:
+                raise RuntimeError(f"lk_level_occupancy failed: cudaError {rc}")
+            threads, blocks, regs, local = (v.value for v in vals)
+            out.append(dict(
+                label=f"{warps} warps x {k} px, {'exact' if exact else 'crop'} blend",
+                threads=threads, blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+                regs=regs, local_bytes=local,
+            ))
+    return out

@@ -28,7 +28,6 @@ import ctypes
 import torch
 
 _MAX_ORIGIN = float(1 << 30)
-_MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 
 def slice_start(start: torch.Tensor, dim: int, size: int) -> torch.Tensor:
@@ -96,8 +95,6 @@ def _check(planes: torch.Tensor, tl: torch.Tensor, size_h: int, size_w: int) -> 
         raise ValueError(f"empty window or plane stack: C={c}, {size_h}x{size_w}")
     if hp < size_h + 1 or wp < size_w + 1:
         raise ValueError(f"planes {hp}x{wp} smaller than the {size_h + 1}x{size_w + 1} crop")
-    if 4 * c * (size_h + 1) * (size_w + 1) > _MAX_SMEM:
-        raise ValueError(f"{c} crops of {size_h + 1}x{size_w + 1} exceed a block's shared memory")
 
 
 def _lib():
@@ -109,6 +106,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
+        occ = lib.patch_bilinear_occupancy
+        occ.argtypes = [i, i, p, p, p, p]
+        occ.restype = ctypes.c_int
     return lib
 
 
@@ -147,3 +147,20 @@ def patch_bilinear(
 
 
 patch_bilinear.launches = 0
+
+
+def kernel_variants() -> list[dict]:
+    """Registers per thread, threads per block and resident blocks and
+    warps per SM of the kernel at the main paths' windows (45 x 45, the
+    exact scan; 15 x 15, the tracker). Needs the CUDA toolkit and a GPU."""
+    lib = _lib()
+    out = []
+    for win in (45, 15):
+        vals = [ctypes.c_int() for _ in range(4)]
+        rc = lib.patch_bilinear_occupancy(win, win, *[ctypes.addressof(v) for v in vals])
+        if rc != 0:
+            raise RuntimeError(f"patch_bilinear_occupancy failed: cudaError {rc}")
+        threads, blocks, regs, local = (v.value for v in vals)
+        out.append(dict(label=f"window {win}x{win}", threads=threads, blocks_per_sm=blocks,
+                        warps_per_sm=blocks * threads // 32, regs=regs, local_bytes=local))
+    return out

@@ -248,3 +248,79 @@ def test_gather_rects_kernel_matches_plain(cuda_device, channels):
     torch.cuda.synchronize()
     assert gather_rects.launches == before + 1
     assert torch.equal(got, gather_rects_reference(img, tl, 118, 128))
+
+
+# one LK configuration per lk_level geometry, at any window
+WINDOW_GEOMETRIES = {
+    "centred": lambda win: dataclasses.replace(PARAMS, win_size=win),
+    "anchored": lambda win: dataclasses.replace(PARAMS, win_size=win, grid_kernel="blocked"),
+    "v1": lambda win: LKParams(win_size=win, slab_margin=8, compute_err=False),
+    "exact": lambda win: LKParams(win_size=win, compute_err=False),
+}
+
+
+def _levels_match_plain(dev, params, a, b, geometry):
+    """Runs every level of `params` on frames a -> b (grid points, or the
+    tracker's points with edge bands on the point paths), each level
+    through lk_level and its plain version from the plain version's
+    inputs: status and top-lefts identical, and the geometry the one
+    asked for."""
+    if params.grid_step is not None:
+        pts_np = measurement_grid(*a.shape, params.grid_step)
+        pts = torch.from_numpy(pts_np).to(dev)
+        grid_xy = (np.unique(pts_np[:, 0]).astype(int), np.unique(pts_np[:, 1]).astype(int))
+    else:
+        pts = torch.from_numpy(tracker_points(*a.shape, 256)).to(dev)
+    prev = tlk.prepare_frame(torch.as_tensor(a).to(dev), params)
+    nxt = tlk.prepare_frame(torch.as_tensor(b).to(dev), params)
+    center = pts * float(2.0**-params.max_level)
+    status = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    for level in range(params.max_level, -1, -1):
+        if level != params.max_level:
+            center = center * 2.0
+        if params.grid_step is not None:
+            args, kw = tlk.level_inputs(prev, nxt, grid_xy, center, level, params)
+        else:
+            args, kw, _ = tlk.point_level_inputs(prev, nxt, pts, center, level, params)
+        assert kw["geometry"] == geometry or (geometry == "centred" and level == params.max_level)
+        before = lk_level.launches
+        tl_k, st_k = lk_level(*args, status, **kw)
+        torch.cuda.synchronize()
+        assert lk_level.launches == before + 1
+        tl_p, st_p = lk_level_reference(*args, status, **kw)
+        assert torch.equal(st_k, st_p), level
+        assert torch.equal(tl_k, tl_p), level
+        center, status = tl_p + tlk._halfwin(params, dev), st_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["shift_5_3", "lattice_40_3"])
+@pytest.mark.parametrize("geometry", sorted(WINDOW_GEOMETRIES))
+@pytest.mark.parametrize("win", [(7, 7), (11, 11), (15, 15), (21, 21), (31, 31), (45, 45), (45, 21)])
+def test_lk_level_windows_kernel_match_plain(cuda_device, win, geometry, pair):
+    """Every team shape of lk_level (one warp for small windows, teams of
+    warps for large ones) in every geometry, on the 270x480 pair and on
+    a (+40, +3) lattice pair: identical to the plain version at every
+    level."""
+    params = WINDOW_GEOMETRIES[geometry](win)
+    if pair == "shift_5_3":
+        a, b = (torch.from_numpy(f) for f in _pair())
+    else:
+        a, b = _lattice_pair(cuda_device, 40, 3)
+    _levels_match_plain(cuda_device, params, a, b, geometry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 1])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_patch_bilinear_window45_kernel_matches_plain(cuda_device, c, quantize):
+    """The exact scan's shape, 2304 windows of 45 x 45, origins off the
+    plane included (wrapped and clamped): identical windows."""
+    rng = np.random.RandomState(45 + c)
+    planes = torch.from_numpy(rng.uniform(0, 255, (c, 300, 500)).astype(np.float32)).to(cuda_device)
+    tl = torch.from_numpy(rng.uniform(-80, 580, (2304, 2)).astype(np.float32)).to(cuda_device)
+    before = patch_bilinear.launches
+    got = patch_bilinear(planes, tl, 45, 45, quantize)
+    torch.cuda.synchronize()
+    assert patch_bilinear.launches == before + 1
+    assert torch.equal(got, patch_bilinear_reference(planes, tl, 45, 45, quantize))
