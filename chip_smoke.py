@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sparse pathfinder path (and its other LK
 configurations: the blocked grid kernel, the lanes kernel without a
-rescue, the exact path), its dense Farneback path and its Shi-Tomasi +
-forward-backward LK tracker once on one GPU.
+rescue, the exact path), its dense Farneback path, its Shi-Tomasi +
+forward-backward LK tracker and its pathfinder app once on one GPU.
 
 Run from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
@@ -72,7 +72,15 @@ Phases, in order; any failure exits non-zero:
 14. lk_grid_flow_video with the blocked kernel and with the exact path over
     the 48-pair clip, and with rescue_large=False and rescue_levels=1 over
     a few pairs: as phase 4 (finite, lk_level at every level, EPE, status,
-    `good` vs the plain path), and the two 48-pair scans' fps.
+    `good` vs the plain path), and the two 48-pair scans' fps;
+15. the pathfinder app (apps/pathfinder.py) at the production params on
+    the 1080p clip, read from host memory through ClipReader (BGR = gray
+    replicated): run_batched(chunk=24) over the 48 pairs, lk_level 3 times
+    a pair and per-pair danger counts equal to lk_grid_flow_video's `good`
+    sums; run over 8 pairs with the same counts; a checkpointed run of 24
+    pairs and its resume with the full run's counts; 2 frames composited
+    with their danger lamps; the app's fps (best of 3, render off) beside
+    phase 5's scan fps.
 
 Each kernel's record carries its device time per shape of the main paths
 (shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
@@ -187,6 +195,35 @@ def make_clip(device, h: int = H, w: int = W, n: int = N_FRAMES, cell: int = 6) 
         img = sample_texture(lat, cx + (xx - cx) / s, cy + (yy - cy) / s, cell)
         frames.append(torch.floor(img + 0.5).to(torch.uint8))
     return torch.stack(frames)
+
+
+class ClipReader:
+    """An in-memory frame source with io/video.py's VideoReader interface
+    (height, width, fps, length, seek, read) over (T, H, W, 3) uint8 BGR
+    frames, or a (T, H, W) gray clip replicated to BGR once. read() returns
+    a view: the "decode" costs nothing and holds no lock, so what the
+    pathfinder app's throughput shows is its own pipeline. The app reads
+    the synthetic clips through it; the GPU machine has no cv2 to decode a
+    file."""
+
+    def __init__(self, frames: np.ndarray, fps: float = 30.0):
+        frames = np.asarray(frames, dtype=np.uint8)
+        self.bgr = frames if frames.ndim == 4 else np.repeat(frames[..., None], 3, axis=-1)
+        self.length, self.height, self.width = self.bgr.shape[:3]
+        self.fps = fps
+        self.pos = 0
+
+    def seek(self, frame_idx: int) -> None:
+        self.pos = frame_idx
+
+    def read(self) -> np.ndarray | None:
+        if self.pos >= self.length:
+            return None
+        self.pos += 1
+        return self.bgr[self.pos - 1]
+
+    def release(self) -> None:
+        pass
 
 
 def true_backward(pts: torch.Tensor) -> torch.Tensor:
@@ -1103,6 +1140,102 @@ def new_scan_phases(dev, clip) -> dict:
     return out
 
 
+APP_CHUNK = 24  # frame pairs per device chunk of the pathfinder app
+APP_RUN_PAIRS = 8  # pairs through the app's one-pair loop
+APP_RENDER_FRAMES = 2  # frames composited (the numpy rasterizer is slow at 1080p)
+
+
+def app_phase(dev, clip, scan_fps: float) -> dict:
+    """Phase 15: the pathfinder app at the production params on the
+    49-frame 1080p zoom clip, read from host memory (ClipReader, BGR
+    frames built before the app runs: no cv2 here): run_batched(chunk=APP_CHUNK) over the 48 pairs with lk_level at
+    every level of every pair and per-pair danger counts equal to the
+    scan's `good` sums; run over APP_RUN_PAIRS pairs with the same first
+    counts; a checkpointed run of half the pairs and its resume with the
+    full run's counts; APP_RENDER_FRAMES frames composited with their
+    danger lamps; the app's steady-state fps (best of 3, render off)
+    beside the scan's."""
+    import os
+
+    from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
+    from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
+    from hackathonopticalflow_tpu_torch.flow import lk_grid
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
+    from hackathonopticalflow_tpu_torch.viz.layers import draw_sparse_lamps
+
+    params = LKParams(grid_step=30, compute_err=False)
+    pairs = clip.shape[0] - 1
+    frames = clip.cpu().numpy()
+    bgr = ClipReader(frames).bgr  # replicated once, outside the app's clock
+    pts = torch.from_numpy(measurement_grid(H, W, params.grid_step)).to(dev)
+    want = lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev).good.sum(1).tolist()
+
+    def app(**kw):
+        cfg = PathfinderConfig(video="synthetic zoom clip", lk=params, device=str(dev), **kw)
+        return PathfinderApp(cfg, open_reader=lambda path: ClipReader(bgr))
+
+    batched = app(max_frames=pairs)
+    batched.warmup(APP_CHUNK)
+    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
+    stats = batched.run_batched(chunk=APP_CHUNK, render=False)
+    torch.cuda.synchronize()
+    launches = lk_level.launches
+    # 3 a pair, the padded tail chunk's pairs included
+    expected = 3 * APP_CHUNK * -(-pairs // APP_CHUNK)
+    counts = stats["danger_counts"]
+    log(f"app run_batched ({stats['frames']} pairs, chunk {APP_CHUNK}): lk_level launches {launches} "
+        f"({expected} expected), warp_bilinear {warp_bilinear.launches}, patch_bilinear "
+        f"{patch_bilinear.launches}; danger counts equal to the scan's good sums {counts == want}, "
+        f"mean {stats['mean_danger_points']:.1f} of {pts.shape[0]}")
+    if launches != expected or stats["frames"] != pairs or counts != want:
+        raise SystemExit("the app's chunked pipeline disagrees with the scan")
+
+    serial = app(max_frames=APP_RUN_PAIRS).run(headless=True, render=False)
+    log(f"app run ({serial['frames']} pairs): counts equal to the first {APP_RUN_PAIRS} "
+        f"{serial['danger_counts'] == want[:APP_RUN_PAIRS]}")
+    if serial["danger_counts"] != want[:APP_RUN_PAIRS]:
+        raise SystemExit("the app's one-pair loop disagrees with the scan")
+
+    ck = os.path.join("build", "chip_smoke_pathfinder.ckpt.npz")
+    os.makedirs("build", exist_ok=True)
+    if os.path.exists(ck):
+        os.remove(ck)
+    half = pairs // 2
+    part1 = app(max_frames=half, checkpoint_path=ck, checkpoint_every=APP_CHUNK).run_batched(chunk=APP_CHUNK)
+    part2 = app(max_frames=pairs, checkpoint_path=ck, checkpoint_every=APP_CHUNK).run_batched(chunk=APP_CHUNK)
+    os.remove(ck)
+    resumed = part1["danger_counts"] + part2["danger_counts"]
+    log(f"app checkpointed run: {part1['frames']} pairs, resume from frame {part2['first_pair_frame']}: "
+        f"{part2['frames']} pairs; counts equal to the full run {resumed == counts}")
+    if resumed != counts or part2["first_pair_frame"] != half + 1:
+        raise SystemExit("the resumed app run disagrees with the full run")
+
+    render_app = app(max_frames=APP_RENDER_FRAMES)
+    for t in range(1, APP_RENDER_FRAMES + 1):
+        res = render_app.compute_frame(frames[t - 1], frames[t])
+        out = render_app.render_frame(bgr[t], res)  # no FPS text over the lamps
+        good, pts_i, next_i = (x.cpu().numpy() for x in (res.good, res.pts, res.next_pts))
+        lamps = draw_sparse_lamps((H, W), (next_i - pts_i)[good], pts_i[good])
+        lamp_px = int((lamps[..., 2] > 0).sum())
+        log(f"app render_frame {t}: {out.shape} {out.dtype}, {lamp_px} lamp pixels")
+        if out.shape != (H, W, 3) or out.dtype != np.uint8 or lamp_px == 0 or (out[..., 2] < lamps[..., 2]).any():
+            raise SystemExit("the app's rendered frame lacks its danger lamps")
+
+    app_s = []
+    for _ in range(3):
+        s = batched.run_batched(chunk=APP_CHUNK, render=False)
+        if s["danger_counts"] != want:
+            raise SystemExit("the app's counts changed between runs")
+        app_s.append(s["wall_s"])
+    fps = pairs / min(app_s)
+    log(f"app run_batched {pairs} pairs {H}p (render off): {fps:.2f} fps, best of 3 "
+        f"({min(app_s) * 1e3:.1f} ms); production scan (phase 5) {scan_fps:.2f} fps; "
+        f"app / scan {fps / scan_fps:.3f}")
+    return {"app_fps": fps, "app_launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device check ----
@@ -1146,6 +1279,7 @@ def main() -> int:
     exact_pb = exact_patch_phase(dev, clip)
     gather = gather_rects_phase(dev, clip)
     scans = new_scan_phases(dev, clip)
+    app = app_phase(dev, clip, sparse["scan_fps"])
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
@@ -1155,6 +1289,7 @@ def main() -> int:
     lk_track = track.pop("lk_level")
     lk["launches_by_path"]["tracker"] = lk_track.pop("launches")
     lk["launches_by_path"].update(scans.pop("lk_level_launches"))
+    lk["launches_by_path"]["app"] = app.pop("app_launches")
     lk["launches"] = sum(lk["launches_by_path"].values())
     lk["max_abs_err"] = max(lk["max_abs_err"], lk_track.pop("max_abs_err"), new_lk.pop("max_abs_err"))
     lk["replaces"] += ", hackathonopticalflow_tpu/ops/lk_pallas2.py:64"
@@ -1166,7 +1301,7 @@ def main() -> int:
     pb["launches"] = sum(pb["launches_by_path"].values())
     merge_records(pb, exact_pb)
     pb["variants"] = variants["patch_bilinear"]
-    record = {"kernels": [lk, dense.pop("kernel"), pb, gather], **sparse, **dense, **track, **scans}
+    record = {"kernels": [lk, dense.pop("kernel"), pb, gather], **sparse, **dense, **track, **scans, **app}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

@@ -1,8 +1,10 @@
 from .config import (
+    PROTO_FILTER,
     TRACKER_LK,
     FarnebackParams,
     FeatureParams,
     FilterParams,
+    GridParams,
     LKParams,
     NormalizeParams,
     TrackerParams,
@@ -11,5 +13,6 @@ from .grid import measurement_grid
 
 __all__ = [
     "LKParams", "NormalizeParams", "FilterParams", "FarnebackParams",
-    "FeatureParams", "TrackerParams", "TRACKER_LK", "measurement_grid",
+    "FeatureParams", "TrackerParams", "GridParams", "TRACKER_LK", "PROTO_FILTER",
+    "measurement_grid",
 ]

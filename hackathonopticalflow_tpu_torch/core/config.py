@@ -4,9 +4,9 @@ Every field here has the JAX package's name, type and default;
 tests/test_torch_core.py holds them equal field by field. The constants
 come from the reference apps: LK window/criteria pathfinder_viewer.py:154-158
 (SparseOF.py:6-8 for the tracker's window 15), radial normalization
-:164-166, filter thresholds :173, grid step :16; Farneback
-DenseOF.py:147-157; Shi-Tomasi SparseOF.py:10-13; tracker
-SparseOF.py:15-16,37-38.
+:164-166, filter thresholds :173 (DenseOF.py:228 for PROTO_FILTER), grid
+step :16; Farneback DenseOF.py:147-157; Shi-Tomasi SparseOF.py:10-13;
+tracker SparseOF.py:15-16,37-38.
 """
 
 from __future__ import annotations
@@ -119,6 +119,17 @@ class FilterParams:
 
     median_factor: float = 1.0
     upper_percentile: float | None = 99.0
+
+
+#: DenseOF.py:228 variant: median*1.2 < m, no upper bound.
+PROTO_FILTER = FilterParams(median_factor=1.2, upper_percentile=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridParams:
+    """Centered measurement grid (reference pathfinder_viewer.py:255-267)."""
+
+    step: int = 30
 
 
 @dataclasses.dataclass(frozen=True)

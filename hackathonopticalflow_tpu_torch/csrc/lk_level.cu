@@ -54,7 +54,12 @@
 // leaves the registers. A lane sums its <= 8 products in int32, a warp sums
 // them exactly with redux.sync on their 16-bit halves, the team in int64;
 // the total S becomes the float S / 1024 with one rounding. That is the
-// float64 sum of the plain version, bit for bit, in any order. Per warp the
+// float64 sum of the plain version, bit for bit, in any order. A window
+// past the largest team's 2048 slots (46 x 46 and up) runs a walking team
+// (WALK, 8 warps x 8 px): it covers the window in passes of 2048 pixels,
+// reads each pass's template gradients again from global memory in every
+// iteration, sums a pass's <= 8 products per lane in int32 and the passes
+// in int64, so any window runs, exactly and slowly. Per warp the
 // partial sums go to shared slots that alternate with the iteration's
 // parity, so an iteration costs one barrier (none in a one-warp team).
 // Build with -fmad=false: an FMA would round the bilinear blend differently
@@ -80,6 +85,8 @@
 // (32 warps), 9 of 4 warps or 18 of 2 (36).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -110,11 +117,25 @@ __device__ __forceinline__ long long warp_sum(int v) {
   return ((long long)hi << 16) + (long long)lo;
 }
 
+// The same for int64 values below 2^57 in magnitude (a walking team's lane
+// sums): two 16-bit pieces and the high word are summed apart.
+__device__ __forceinline__ long long warp_sum(long long v) {
+  const unsigned lo = __reduce_add_sync(FULL, (unsigned)v & 0xffffu);
+  const unsigned mid = __reduce_add_sync(FULL, (unsigned)(v >> 16) & 0xffffu);
+  const int hi = __reduce_add_sync(FULL, (int)(v >> 32));
+  return ((long long)hi << 32) + ((long long)mid << 16) + (long long)lo;
+}
+
+// A lane's partial sums: int32 in a team whose slots hold the window, int64
+// in a walking one.
+template <bool WALK>
+using LaneSum = typename std::conditional<WALK, long long, int>::type;
+
 // Sums v[0..NV) over the team; every thread receives the totals. Teams of
 // several warps pass one barrier: the warps' partial sums go to the shared
 // slots of `parity`, which the team's next reduction does not write.
-template <int WARPS, int NV>
-__device__ __forceinline__ void team_sum(const int (&v)[NV], long long (&s)[NV],
+template <int WARPS, int NV, class T>
+__device__ __forceinline__ void team_sum(const T (&v)[NV], long long (&s)[NV],
                                          long long (*red)[5][WARPS], int parity,
                                          int warp, int lane) {
 #pragma unroll
@@ -208,7 +229,48 @@ __device__ __forceinline__ void window_sums(const float* base, const Slots& sl,
   }
 }
 
-template <int WARPS, int K, bool EXACT_BLEND>
+// A walking team (a window past the slots' 32 * WARPS * K pixels) covers the
+// window in passes of TEAM * K pixels, the lane's pixels of a pass starting
+// at p0 = pass origin + tid. Its template gradients do not fit in registers:
+// each pass reads its own again (x32, 0 past the window), from L1 or L2.
+template <int K, int TEAM>
+__device__ __forceinline__ void pass_gradients(const float* t, int npix, int p0,
+                                               int (&gx)[K], int (&gy)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = p0 + k * TEAM, pc = min(p, npix - 1);
+    const float tx = __ldg(t + npix + pc), ty = __ldg(t + 2 * npix + pc);
+    gx[k] = p < npix ? to_grid(tx) : 0;
+    gy[k] = p < npix ? to_grid(ty) : 0;
+  }
+}
+
+// sb += the lane's share of the b sums: window_sums over the lane's slots,
+// or, in a walking team, over each pass in turn (each pass's <= K products
+// summed in int32, the passes added in int64).
+template <int K, int TEAM, bool WALK, class Blend>
+__device__ __forceinline__ void b_sums(const float* base, const Slots& sl,
+                                       const int (&gx)[K], const int (&gy)[K],
+                                       const float* t, int tid, int win_w,
+                                       int win_h, int wp, Blend blend,
+                                       LaneSum<WALK> (&sb)[2]) {
+  if constexpr (WALK) {
+    const int npix = win_w * win_h;
+    for (int c0 = 0; c0 < npix; c0 += TEAM * K) {
+      int pgx[K], pgy[K];
+      pass_gradients<K, TEAM>(t, npix, c0 + tid, pgx, pgy);
+      const Slots ps = lane_slots<K>(c0 + tid, TEAM, win_w, win_h, wp);
+      int s[2] = {0, 0};
+      window_sums<K>(base, ps, pgx, pgy, blend, s);
+      sb[0] += s[0];
+      sb[1] += s[1];
+    }
+  } else {
+    window_sums<K>(base, sl, gx, gy, blend, sb);
+  }
+}
+
+template <int WARPS, int K, bool WALK, bool EXACT_BLEND>
 __global__ void __launch_bounds__(Block<WARPS>::threads, Block<WARPS>::min_blocks)
 lk_level_kernel(
     const float* __restrict__ tmpl,      // (N, 3, win_h, win_w)
@@ -275,29 +337,55 @@ lk_level_kernel(
   // the point's constant (a[3], a[4]), so the image template stays out of
   // the registers
   int gx[K], gy[K];
-  int sa[5] = {0, 0, 0, 0, 0};  // Ix Ix, Ix Iy, Iy Iy, iw Ix, iw Iy (x 1024)
-  const float* t = tmpl + (size_t)pt * 3 * npix;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    // every slot loads (a slot past the window its last pixel, then drops
-    // it), so that all of a lane's loads are in flight at once
-    const int p = tid + k * TEAM, pc = min(p, npix - 1);
-    // (read once: evict-first, so the plane stays in L2)
-    const float tw = __ldcs(t + pc), tx = __ldcs(t + npix + pc), ty = __ldcs(t + 2 * npix + pc);
-    const bool in = p < npix;
-    const int iwk = in ? to_grid(tw) : 0;
-    const int gxk = in ? to_grid(tx) : 0;
-    const int gyk = in ? to_grid(ty) : 0;
-    gx[k] = gxk;
-    gy[k] = gyk;
-    sa[0] += gxk * gxk;
-    sa[1] += gxk * gyk;
-    sa[2] += gyk * gyk;
-    sa[3] += iwk * gxk;
-    sa[4] += iwk * gyk;
-  }
   long long a[5];
-  team_sum<WARPS, 5>(sa, a, red, 1, warp, lane);
+  const float* t = tmpl + (size_t)pt * 3 * npix;
+  if constexpr (WALK) {
+    // pass by pass, each pass's sums in int32, added in int64; the
+    // gradients are read again in every iteration (b_sums)
+    long long la[5] = {0, 0, 0, 0, 0};
+    for (int c0 = 0; c0 < npix; c0 += TEAM * K) {
+      int sa[5] = {0, 0, 0, 0, 0};
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int p = c0 + tid + k * TEAM, pc = min(p, npix - 1);
+        const float tw = __ldg(t + pc), tx = __ldg(t + npix + pc), ty = __ldg(t + 2 * npix + pc);
+        const bool in = p < npix;
+        const int iwk = in ? to_grid(tw) : 0;
+        const int gxk = in ? to_grid(tx) : 0;
+        const int gyk = in ? to_grid(ty) : 0;
+        sa[0] += gxk * gxk;
+        sa[1] += gxk * gyk;
+        sa[2] += gyk * gyk;
+        sa[3] += iwk * gxk;
+        sa[4] += iwk * gyk;
+      }
+#pragma unroll
+      for (int q = 0; q < 5; ++q) la[q] += sa[q];
+    }
+    team_sum<WARPS, 5>(la, a, red, 1, warp, lane);
+  } else {
+    int sa[5] = {0, 0, 0, 0, 0};  // Ix Ix, Ix Iy, Iy Iy, iw Ix, iw Iy (x 1024)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      // every slot loads (a slot past the window its last pixel, then drops
+      // it), so that all of a lane's loads are in flight at once
+      const int p = tid + k * TEAM, pc = min(p, npix - 1);
+      // (read once: evict-first, so the plane stays in L2)
+      const float tw = __ldcs(t + pc), tx = __ldcs(t + npix + pc), ty = __ldcs(t + 2 * npix + pc);
+      const bool in = p < npix;
+      const int iwk = in ? to_grid(tw) : 0;
+      const int gxk = in ? to_grid(tx) : 0;
+      const int gyk = in ? to_grid(ty) : 0;
+      gx[k] = gxk;
+      gy[k] = gyk;
+      sa[0] += gxk * gxk;
+      sa[1] += gxk * gyk;
+      sa[2] += gyk * gyk;
+      sa[3] += iwk * gxk;
+      sa[4] += iwk * gyk;
+    }
+    team_sum<WARPS, 5>(sa, a, red, 1, warp, lane);
+  }
   const float a11 = __fmul_rn(grid_sum_f32(a[0]), CV_SCALE);
   const float a12 = __fmul_rn(grid_sum_f32(a[1]), CV_SCALE);
   const float a22 = __fmul_rn(grid_sum_f32(a[2]), CV_SCALE);
@@ -326,7 +414,7 @@ lk_level_kernel(
         if (is_level0) status = false;
         break;
       }
-      int sb[2] = {0, 0};
+      LaneSum<WALK> sb[2] = {0, 0};
       float ax, ay;
       const float* base = locate(tlx, tly, ax, ay);
       const float bx = __fsub_rn(1.0f, ax), by = __fsub_rn(1.0f, ay);
@@ -334,24 +422,24 @@ lk_level_kernel(
         // weights formed first (JAX blend_bilinear), as csrc/patch_bilinear.cu
         const float w00 = __fmul_rn(bx, by), w10 = __fmul_rn(ax, by);
         const float w01 = __fmul_rn(bx, ay), w11 = __fmul_rn(ax, ay);
-        window_sums<K>(base, sl, gx, gy,
-                       [&](const float* p) {
-                         float v = __fmul_rn(__ldg(p), w00);
-                         v = __fadd_rn(v, __fmul_rn(__ldg(p + 1), w10));
-                         v = __fadd_rn(v, __fmul_rn(__ldg(p + wp), w01));
-                         return __fadd_rn(v, __fmul_rn(__ldg(p + wp + 1), w11));
-                       },
-                       sb);
+        b_sums<K, TEAM, WALK>(base, sl, gx, gy, t, tid, win_w, win_h, wp,
+                              [&](const float* p) {
+                                float v = __fmul_rn(__ldg(p), w00);
+                                v = __fadd_rn(v, __fmul_rn(__ldg(p + 1), w10));
+                                v = __fadd_rn(v, __fmul_rn(__ldg(p + wp), w01));
+                                return __fadd_rn(v, __fmul_rn(__ldg(p + wp + 1), w11));
+                              },
+                              sb);
       } else {
         // value first (the Pallas kernels' _blend)
-        window_sums<K>(base, sl, gx, gy,
-                       [&](const float* p) {
-                         float v = __fmul_rn(__fmul_rn(__ldg(p), bx), by);
-                         v = __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + 1), ax), by));
-                         v = __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + wp), bx), ay));
-                         return __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + wp + 1), ax), ay));
-                       },
-                       sb);
+        b_sums<K, TEAM, WALK>(base, sl, gx, gy, t, tid, win_w, win_h, wp,
+                              [&](const float* p) {
+                                float v = __fmul_rn(__fmul_rn(__ldg(p), bx), by);
+                                v = __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + 1), ax), by));
+                                v = __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + wp), bx), ay));
+                                return __fadd_rn(v, __fmul_rn(__fmul_rn(__ldg(p + wp + 1), ax), ay));
+                              },
+                              sb);
       }
       long long b[2];
       team_sum<WARPS, 2>(sb, b, red, j & 1, warp, lane);
@@ -381,23 +469,29 @@ lk_level_kernel(
   }
 }
 
-using KernelFn = decltype(&lk_level_kernel<1, 2, false>);
+using KernelFn = decltype(&lk_level_kernel<1, 2, false, false>);
 
-// The instantiation for (warps, k) and the blend, and its threads per
-// block; null for a shape ops/lk_level.py::LAUNCH_SHAPES does not name.
-KernelFn pick(int warps, int k, bool exact, int* threads) {
-#define LK_SHAPE(W, KK)                                                   \
-  if (warps == W && k == KK) {                                            \
-    *threads = Block<W>::threads;                                        \
-    return exact ? lk_level_kernel<W, KK, true> : lk_level_kernel<W, KK, false>; \
+// The instantiation for (warps, k, walk) and the blend, and its threads per
+// block; null for a shape ops/lk_level.py does not name (LAUNCH_SHAPES, and
+// WALK_SHAPE with walk).
+KernelFn pick(int warps, int k, bool walk, bool exact, int* threads) {
+#define LK_PICK(W, KK, WALK)                                                  \
+  if (warps == W && k == KK && walk == WALK) {                                \
+    *threads = Block<W>::threads;                                             \
+    return exact ? lk_level_kernel<W, KK, WALK, true> : lk_level_kernel<W, KK, WALK, false>; \
   }
+#define LK_SHAPE(W, KK) LK_PICK(W, KK, false)
+#define LK_WALK(W, KK) LK_PICK(W, KK, true)
   LK_SHAPE(1, 2)
   LK_SHAPE(2, 2)
   LK_SHAPE(4, 2)
   LK_SHAPE(8, 2)
   LK_SHAPE(8, 4)
   LK_SHAPE(8, 8)
+  LK_WALK(8, 8)
+#undef LK_WALK
 #undef LK_SHAPE
+#undef LK_PICK
   return nullptr;
 }
 
@@ -406,18 +500,19 @@ KernelFn pick(int warps, int k, bool exact, int* threads) {
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 // geometry: CENTRED (0), V1 (1) or EXACT (2); active0 may be null;
 // (warps, k): the team shape, one of ops/lk_level.py::LAUNCH_SHAPES with
-// 32 * warps * k >= win_w * win_h.
+// 32 * warps * k >= win_w * win_h, or with walk its WALK_SHAPE, which takes
+// any window.
 extern "C" int lk_level_launch(
     const float* tmpl, const float* plane, int hp, int wp, int pad,
     const float* tl0, const int* crop_org, const unsigned char* status0,
     const unsigned char* active0, float* tl_out, unsigned char* status_out,
     int n, int m, int win_w, int win_h, int level_w, int level_h,
     int max_iters, float eps2, int is_level0, float min_eig_threshold,
-    int geometry, int warps, int k, void* stream) {
+    int geometry, int warps, int k, int walk, void* stream) {
   if (geometry < CENTRED || geometry > EXACT) return (int)cudaErrorInvalidValue;
   int threads = 0;
-  const KernelFn fn = pick(warps, k, geometry == EXACT, &threads);
-  if (fn == nullptr || 32 * warps * k < win_w * win_h) return (int)cudaErrorInvalidValue;
+  const KernelFn fn = pick(warps, k, walk != 0, geometry == EXACT, &threads);
+  if (fn == nullptr || (!walk && 32 * warps * k < win_w * win_h)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int teams = threads / (32 * warps);
   fn<<<(n + teams - 1) / teams, threads, 0, (cudaStream_t)stream>>>(
@@ -429,10 +524,10 @@ extern "C" int lk_level_launch(
 
 // The instantiation's registers and local bytes per thread, threads per
 // block and resident blocks per SM.
-extern "C" int lk_level_occupancy(int warps, int k, int exact, int* threads,
+extern "C" int lk_level_occupancy(int warps, int k, int walk, int exact, int* threads,
                                   int* blocks_per_sm, int* regs,
                                   int* local_bytes) {
-  const KernelFn fn = pick(warps, k, exact != 0, threads);
+  const KernelFn fn = pick(warps, k, walk != 0, exact != 0, threads);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);

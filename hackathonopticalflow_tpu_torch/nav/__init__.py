@@ -1,2 +1,2 @@
-"""Radial normalization and the robust mask (ports of
+"""Radial normalization, the robust masks and danger values (ports of
 hackathonopticalflow_tpu/nav/)."""

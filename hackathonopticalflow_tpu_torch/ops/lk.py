@@ -44,7 +44,7 @@ from ..core import LKParams, measurement_grid
 from .deriv import scharr_deriv
 from .image import reflect101_pad
 from .lk_level import lk_level
-from .patch import _axis_bases, extract_grid_templates, extract_patches, extract_patches_multi
+from .patch import _axis_bases, axis_key, extract_grid_templates, extract_patches, extract_patches_multi
 from .pyramid import build_pyramid
 
 
@@ -132,6 +132,25 @@ def _halfwin_on(win_size: tuple, device: torch.device) -> torch.Tensor:
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _grid_axes(h: int, w: int, step: int) -> tuple[tuple, tuple]:
+    """(xs, ys): the axis coordinates of measurement_grid(h, w, step), as
+    tuples of ints."""
+    g = measurement_grid(h, w, step)
+    return tuple(np.unique(g[:, 0]).astype(int).tolist()), tuple(np.unique(g[:, 1]).astype(int).tolist())
+
+
+@functools.lru_cache(maxsize=32)
+def _slab_bases(xs: tuple, ys: tuple, level: int, off_x: float, off_y: float, device: torch.device) -> torch.Tensor:
+    """(N, 2) int32 grid-anchored slab origins [x, y] at `level`, x-major,
+    on `device`; made once per grid, level, offset and device, as
+    _halfwin_on is."""
+    bx, _ = _axis_bases(xs, level, off_x)
+    by, _ = _axis_bases(ys, level, off_y)
+    base = np.stack(np.meshgrid(bx, by, indexing="ij"), -1).reshape(-1, 2)
+    return torch.as_tensor(base.astype(np.int32), device=device)
+
+
 def _anchored(level: int, params: LKParams) -> bool:
     """Whether a grid level cuts its crops from grid-anchored slabs: every
     level of the blocked kernel; below the top, the lanes levels without a
@@ -170,10 +189,8 @@ def _anchored_crops(
     if slack_x < 0 or slack_y < 0:
         raise ValueError(f"crop {crop_y}x{crop_x} larger than the {ry}x{rx} slab")
     xs, ys = grid_xy
-    bx, _ = _axis_bases(xs, level, (win_w - 1) * 0.5 + mx)
-    by, _ = _axis_bases(ys, level, (win_h - 1) * 0.5 + my)
-    base = np.stack(np.meshgrid(bx, by, indexing="ij"), -1).reshape(-1, 2)  # x-major
-    base = torch.as_tensor(base.astype(np.int32), device=tl0.device)
+    base = _slab_bases(axis_key(xs), axis_key(ys), level, (win_w - 1) * 0.5 + mx,
+                       (win_h - 1) * 0.5 + my, tl0.device)
     raw = torch.floor(tl0).to(torch.int32) - base - m
     fits = (raw[:, 0] >= 0) & (raw[:, 0] <= slack_x) & (raw[:, 1] >= 0) & (raw[:, 1] <= slack_y)
     off = torch.stack([raw[:, 0].clamp(0, slack_x), raw[:, 1].clamp(0, slack_y)], dim=-1)
@@ -375,13 +392,13 @@ def pyr_lk_prepared(
         pad = _frame_pad(params)
         h = prep_prev.img_p[0].shape[0] - 2 * pad
         w = prep_prev.img_p[0].shape[1] - 2 * pad
-        gpts = measurement_grid(h, w, params.grid_step)
-        if gpts.shape[0] != pts.shape[0]:
+        grid_xy = _grid_axes(h, w, params.grid_step)
+        n_grid = len(grid_xy[0]) * len(grid_xy[1])
+        if n_grid != pts.shape[0]:
             raise ValueError(
                 f"pts must be measurement_grid({h}, {w}, {params.grid_step}): "
-                f"expected {gpts.shape[0]} points, got {pts.shape[0]}"
+                f"expected {n_grid} points, got {pts.shape[0]}"
             )
-        grid_xy = (np.unique(gpts[:, 0]).astype(int), np.unique(gpts[:, 1]).astype(int))
 
         def level_step(center, status, level):
             return _level_lk_static_grid(prep_prev, prep_next, grid_xy, center, status, level, params)

@@ -52,7 +52,8 @@ templates on the 1/32 grid (`extract_grid_templates`,
 exact path sum in float32, so the port meets them to a tolerance.)
 
 The kernel runs a team of warps per point, sized to the window by
-`launch_shape`.
+`launch_shape`; windows past MAX_PIXELS take a team that walks the window
+in passes, so the kernel takes every window the plain version takes.
 """
 
 from __future__ import annotations
@@ -88,18 +89,22 @@ GEOMETRIES = {"centred": 0, "anchored": 0, "v1": 1, "exact": 2}
 # reductions per pixel pay (the grid's 45 x 45: 8 x 8).
 LAUNCH_SHAPES = ((1, 2), (2, 2), (4, 2), (8, 2), (8, 4), (8, 8))
 MAX_PIXELS = 32 * 8 * 8
+# Windows past MAX_PIXELS: a team of this shape walks the window in passes
+# of 32 * 8 * 8 pixels, reading the template's gradients again in every
+# iteration (csrc/lk_level.cu's LK_WALK instantiation).
+WALK_SHAPE = (8, 8)
 
 
-def launch_shape(win_w: int, win_h: int) -> tuple[int, int]:
-    """(warps per point, pixels per lane) of the kernel's team for a
+def launch_shape(win_w: int, win_h: int) -> tuple[int, int, bool]:
+    """(warps per point, pixels per lane, walk) of the kernel's team for a
     win_w x win_h window: the smallest shape of LAUNCH_SHAPES whose slots
-    hold the window (at most max(64, 2 * pixels) slots). Raises past
-    MAX_PIXELS."""
+    hold the window (at most max(64, 2 * pixels) slots); past MAX_PIXELS,
+    WALK_SHAPE walking the window."""
     npix = win_w * win_h
     for warps, k in LAUNCH_SHAPES:
         if 32 * warps * k >= npix:
-            return warps, k
-    raise ValueError(f"window {win_w}x{win_h} exceeds the kernel's budget of {MAX_PIXELS} pixels")
+            return warps, k, False
+    return (*WALK_SHAPE, True)
 
 
 def crop_size(geometry: str, m: int, win_w: int, win_h: int) -> tuple[int, int]:
@@ -247,12 +252,12 @@ def _lib():
         fn.argtypes = [
             p, p, i, i, i, p, p, p, p, p, p,  # tmpl .. status_out
             i, i, i, i, i, i, i, f, i, f,  # n .. min_eig_threshold
-            i, i, i,  # geometry code, warps, k
+            i, i, i, i,  # geometry code, warps, k, walk
             p,  # stream
         ]
         fn.restype = ctypes.c_int
         occ = lib.lk_level_occupancy
-        occ.argtypes = [i, i, i, p, p, p, p]
+        occ.argtypes = [i, i, i, i, p, p, p, p]
         occ.restype = ctypes.c_int
     return lib
 
@@ -316,7 +321,7 @@ def lk_level(
     if dev.type != "cuda":
         raise ValueError(f"lk_level runs on cpu or cuda tensors, not {dev.type}")
 
-    warps, k = launch_shape(win_w, win_h)
+    warps, k, walk = launch_shape(win_w, win_h)
     lib = _lib()
     tl_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     st_out = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -328,7 +333,7 @@ def lk_level(
             None if active0 is None else active0.data_ptr(),
             tl_out.data_ptr(), st_out.data_ptr(),
             n, m, win_w, win_h, level_w, level_h, max_iters, eps2,
-            int(is_level0), min_eig_threshold, GEOMETRIES[geometry], warps, k, stream,
+            int(is_level0), min_eig_threshold, GEOMETRIES[geometry], warps, k, int(walk), stream,
         )
     if rc != 0:
         raise RuntimeError(f"lk_level launch failed: cudaError {rc}")
@@ -345,15 +350,16 @@ def kernel_variants() -> list[dict]:
     crop and exact blends). Needs the CUDA toolkit and a GPU."""
     lib = _lib()
     out = []
-    for warps, k in LAUNCH_SHAPES:
+    for warps, k, walk in [(w, k, False) for w, k in LAUNCH_SHAPES] + [(*WALK_SHAPE, True)]:
         for exact in (False, True):
             vals = [ctypes.c_int() for _ in range(4)]
-            rc = lib.lk_level_occupancy(warps, k, int(exact), *[ctypes.addressof(v) for v in vals])
+            rc = lib.lk_level_occupancy(warps, k, int(walk), int(exact), *[ctypes.addressof(v) for v in vals])
             if rc != 0:
                 raise RuntimeError(f"lk_level_occupancy failed: cudaError {rc}")
             threads, blocks, regs, local = (v.value for v in vals)
             out.append(dict(
-                label=f"{warps} warps x {k} px, {'exact' if exact else 'crop'} blend",
+                label=f"{warps} warps x {k} px{' walking' if walk else ''}, "
+                f"{'exact' if exact else 'crop'} blend",
                 threads=threads, blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
                 regs=regs, local_bytes=local,
             ))

@@ -12,6 +12,8 @@ panels) are dropped: windows are (N, [C,] h, w) float32."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -67,6 +69,26 @@ def _axis_bases(coords: np.ndarray, level: int, off: float):
     return base, (pos - base).astype(np.float32)
 
 
+def axis_key(coords) -> tuple:
+    """Grid axis coordinates as a hashable tuple of ints (a cache key)."""
+    return coords if isinstance(coords, tuple) else tuple(int(v) for v in coords)
+
+
+@functools.lru_cache(maxsize=64)
+def _template_index(xs: tuple, ys: tuple, level: int, win_w: int, win_h: int, pad: int, device: torch.device):
+    """(rows (Ky, win_h+1), y fractions, columns (Kx, win_w+1), x fractions)
+    of the grid templates in the padded planes, on `device`. Made once per
+    grid, level, window, pad and device: built from the host at every level
+    they cost a pageable copy and a stream sync each."""
+    by, fy = _axis_bases(ys, level, (win_h - 1) * 0.5)
+    bx, fx = _axis_bases(xs, level, (win_w - 1) * 0.5)
+    ry = torch.as_tensor(by + pad, device=device)[:, None] + torch.arange(win_h + 1, device=device)
+    cx = torch.as_tensor(bx + pad, device=device)[:, None] + torch.arange(win_w + 1, device=device)
+    fyv = torch.as_tensor(fy, device=device).reshape(1, -1, 1, 1)
+    fxv = torch.as_tensor(fx, device=device).reshape(1, 1, 1, -1, 1)
+    return ry, fyv, cx, fxv
+
+
 def extract_grid_templates(
     planes: torch.Tensor,
     xs: np.ndarray,
@@ -82,16 +104,10 @@ def extract_grid_templates(
     Per point, the window at pts / 2^level - halfwin: rows are blended in
     y first, then columns in x, then quantized to floor(v*32 + 0.5)/32.
     Returns (Kx*Ky, 3, win_h, win_w), point k = ix*Ky + iy."""
-    dev = planes.device
-    by, fy = _axis_bases(ys, level, (win_h - 1) * 0.5)
-    bx, fx = _axis_bases(xs, level, (win_w - 1) * 0.5)
-    ry = torch.as_tensor(by + pad, device=dev)[:, None] + torch.arange(win_h + 1, device=dev)
+    ry, fyv, cx, fxv = _template_index(axis_key(xs), axis_key(ys), level, win_w, win_h, pad, planes.device)
     rows = planes[:, ry, :]  # (3, Ky, win_h+1, Wp)
-    fyv = torch.as_tensor(fy, device=dev).reshape(1, -1, 1, 1)
     rows = rows[:, :, :win_h, :] * (1 - fyv) + rows[:, :, 1:, :] * fyv
-    cx = torch.as_tensor(bx + pad, device=dev)[:, None] + torch.arange(win_w + 1, device=dev)
     cols = rows[..., cx]  # (3, Ky, win_h, Kx, win_w+1)
-    fxv = torch.as_tensor(fx, device=dev).reshape(1, 1, 1, -1, 1)
     wnd = cols[..., :win_w] * (1 - fxv) + cols[..., 1:] * fxv
     wnd = torch.floor(wnd * 32.0 + 0.5) * (1.0 / 32.0)
     # (3, Ky, win_h, Kx, win_w) -> (Kx, Ky, 3, win_h, win_w), x-major

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's 1080p sparse scan, 720p dense scan or
-1080p tracker scan, on one CUDA GPU.
+"""Where the time goes in the port's 1080p sparse scan, 720p dense scan,
+1080p tracker scan or 1080p pathfinder app, on one CUDA GPU.
 
 Run from the repository root:
 
-    python3 profile_torch_scan.py [--path sparse|dense|tracker] [--pairs 8] [--out PATH]
+    python3 profile_torch_scan.py [--path sparse|dense|tracker|app] [--pairs 8] [--out PATH]
 
 Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip:
 `lk_grid_flow_video` at the production params (--path sparse, the
 default), `farneback_flow_video` at the reference FarnebackParams (--path
-dense) or `track_video` at TrackerParams() after a seeding step on the
-first frame (--path tracker; a step per pair). It prints:
+dense), `track_video` at TrackerParams() after a seeding step on the
+first frame (--path tracker; a step per pair) or the pathfinder app's
+`run_batched` at the production params, chunks of APP_CHUNK pairs, render
+off, its frames read from host memory (--path app; host API calls are
+also given per chunk). It prints:
 - the GPU's name and power limit (nvidia-smi);
 - the scan's wall time without the profiler (best of 3) and the device
   time that torch.profiler records over one more scan, so the device's
@@ -25,7 +28,8 @@ first frame (--path tracker; a step per pair). It prints:
   prepare_frame, update_matrices and the solve per level,
   farneback_prepared; tracker: prepare_frame, one pyr_lk_prepared,
   good_features_to_track, _detect_mask, and track_step_prepared on a step
-  without and with detection.
+  without and with detection; app: the gray conversion of one frame (host
+  clock) and one chunk's device work.
 The full profiler tables go to --out (default
 build/profile_torch_scan[_dense|_tracker].txt); the last line is the
 summary as one JSON object.
@@ -45,7 +49,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import DENSE_CELL, DENSE_H, DENSE_W, H, W, cuda_ms, make_clip
+from chip_smoke import APP_CHUNK, DENSE_CELL, DENSE_H, DENSE_W, H, W, ClipReader, cuda_ms, make_clip
 from hackathonopticalflow_tpu_torch.core import (
     FarnebackParams,
     FilterParams,
@@ -182,7 +186,36 @@ def tracker_setup(dev, pairs: int):
     return scan, stages, "1080p"
 
 
-SETUPS = {"sparse": sparse_setup, "dense": dense_setup, "tracker": tracker_setup}
+def app_setup(dev, pairs: int):
+    """The pathfinder app's chunked pipeline over `pairs` 1080p pairs and
+    its stage timer."""
+    from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
+    from hackathonopticalflow_tpu_torch.io.prefetch import to_gray
+
+    frames = make_clip(dev)[: pairs + 1].cpu().numpy()
+    bgr = ClipReader(frames).bgr
+    chunk = min(APP_CHUNK, pairs)
+    cfg = PathfinderConfig(video="synthetic zoom clip", max_frames=pairs,
+                           lk=LKParams(grid_step=30, compute_err=False), device=str(dev))
+    app = PathfinderApp(cfg, open_reader=lambda path: ClipReader(bgr))
+
+    def scan():
+        return app.run_batched(chunk=chunk, render=False)
+
+    def stages():
+        to_gray(bgr[1])
+        t0 = time.perf_counter()
+        for _ in range(10):
+            to_gray(bgr[1])
+        out = {"to_gray (host)": (time.perf_counter() - t0) * 100}
+        chunk_dev = torch.from_numpy(frames[: chunk + 1]).to(dev)
+        out[f"chunk of {chunk} pairs"] = cuda_ms(lambda: app._chunk_fn(chunk_dev), 3)
+        return out
+
+    return scan, stages, f"1080p, chunks of {chunk}"
+
+
+SETUPS = {"sparse": sparse_setup, "dense": dense_setup, "tracker": tracker_setup, "app": app_setup}
 
 
 def main() -> int:
@@ -244,6 +277,10 @@ def main() -> int:
           f"device {device_ms:.3f} ms profiled, busy share {device_ms / wall_ms:.3f}")
     print("host API calls per pair: "
           + ", ".join(f"{k} {v / args.pairs:.1f}" for k, v in api.most_common(6)))
+    if args.path == "app":
+        n_chunks = -(-args.pairs // min(APP_CHUNK, args.pairs))
+        print(f"host API calls per chunk ({n_chunks} chunks): "
+              + ", ".join(f"{k} {v / n_chunks:.1f}" for k, v in api.most_common(8)))
     print("device copies per pair: "
           + (", ".join(f"{k} {v / args.pairs:.1f}" for k, v in copies.most_common()) or "none"))
     print("device time by kind (ms, share): " + ", ".join(

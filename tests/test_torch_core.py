@@ -21,6 +21,7 @@ JAX_ONLY = {
     "FarnebackParams": {"warp_group_rows"},
     "FeatureParams": set(),
     "TrackerParams": set(),
+    "GridParams": set(),
 }
 
 
@@ -55,6 +56,14 @@ def test_tracker_lk_matches_jax():
     assert J_TRACKER_LK.use_pallas and J_TRACKER_LK.points_lanes
     assert _fields(tcore.TRACKER_LK, "LKParams") == _fields(J_TRACKER_LK, "LKParams")
     assert tcore.TrackerParams().lk == tcore.TRACKER_LK
+
+
+def test_proto_filter_matches_jax():
+    """PROTO_FILTER (DenseOF.py:228's median*1.2 filter) field by field."""
+    from hackathonopticalflow_tpu.core.config import PROTO_FILTER as J_PROTO_FILTER
+
+    assert _fields(tcore.PROTO_FILTER, "FilterParams") == _fields(J_PROTO_FILTER, "FilterParams")
+    assert tcore.PROTO_FILTER != tcore.FilterParams()
 
 
 def test_production_lk_params_match_jax():

@@ -259,12 +259,12 @@ WINDOW_GEOMETRIES = {
 }
 
 
-def _levels_match_plain(dev, params, a, b, geometry):
+def _levels_match_plain(dev, params, a, b, geometry, top=None):
     """Runs every level of `params` on frames a -> b (grid points, or the
     tracker's points with edge bands on the point paths), each level
     through lk_level and its plain version from the plain version's
     inputs: status and top-lefts identical, and the geometry the one
-    asked for."""
+    asked for (`top` at the top level, where given)."""
     if params.grid_step is not None:
         pts_np = measurement_grid(*a.shape, params.grid_step)
         pts = torch.from_numpy(pts_np).to(dev)
@@ -282,7 +282,8 @@ def _levels_match_plain(dev, params, a, b, geometry):
             args, kw = tlk.level_inputs(prev, nxt, grid_xy, center, level, params)
         else:
             args, kw, _ = tlk.point_level_inputs(prev, nxt, pts, center, level, params)
-        assert kw["geometry"] == geometry or (geometry == "centred" and level == params.max_level)
+        want = top if top is not None and level == params.max_level else geometry
+        assert kw["geometry"] == want or (geometry == "centred" and level == params.max_level)
         before = lk_level.launches
         tl_k, st_k = lk_level(*args, status, **kw)
         torch.cuda.synchronize()
@@ -308,6 +309,33 @@ def test_lk_level_windows_kernel_match_plain(cuda_device, win, geometry, pair):
     else:
         a, b = _lattice_pair(cuda_device, 40, 3)
     _levels_match_plain(cuda_device, params, a, b, geometry)
+
+
+# Windows past the largest team's 2048 slots take the walking team. The
+# anchored geometry comes from rescue_large=False here (levels below the top;
+# the top is "centred"): the blocked kernel's 128 px slab holds no top-level
+# crop of a window past 46 px.
+WALK_GEOMETRIES = dict(
+    WINDOW_GEOMETRIES,
+    anchored=lambda win: dataclasses.replace(PARAMS, win_size=win, rescue_large=False),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["shift_5_3", "lattice_40_3"])
+@pytest.mark.parametrize("geometry", sorted(WALK_GEOMETRIES))
+@pytest.mark.parametrize("win", [(46, 46), (64, 64), (91, 91)])
+def test_lk_level_walking_windows_kernel_match_plain(cuda_device, win, geometry, pair):
+    """The walking team (any window past 45 x 45) in every geometry, on
+    the 270x480 pair and on a (+40, +3) lattice pair: identical to the
+    plain version at every level."""
+    params = WALK_GEOMETRIES[geometry](win)
+    if pair == "shift_5_3":
+        a, b = (torch.from_numpy(f) for f in _pair())
+    else:
+        a, b = _lattice_pair(cuda_device, 40, 3)
+    top = "centred" if geometry == "anchored" else None
+    _levels_match_plain(cuda_device, params, a, b, geometry, top)
 
 
 @pytest.mark.cuda

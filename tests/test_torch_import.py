@@ -22,7 +22,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.add(m.name[len(pkg.__name__) + 1:])
 assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.features",
-        "ops.patch_bilinear", "flow.tracker", "ops.gather_rects"} <= names, names
+        "ops.patch_bilinear", "flow.tracker", "ops.gather_rects", "apps.pathfinder", "nav.danger",
+        "ops.color", "io.prefetch", "io.native_lib", "viz.layers", "utils.checkpoint"} <= names, names
 from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
@@ -67,6 +68,16 @@ state, (heads, alive, length) = track_video(
 )
 assert patch_bilinear.launches == 0 and lk_level.launches == 0
 assert heads.shape == (2, 16, 2) and state.frame_idx == 2
+
+from chip_smoke import ClipReader
+from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
+from hackathonopticalflow_tpu_torch.core import LKParams
+gray = torch.floor(torch.rand((5, 64, 96), generator=g) * 255).to(torch.uint8).numpy()
+app = PathfinderApp(PathfinderConfig(video="clip", max_frames=4, lk=LKParams(grid_step=30, compute_err=False),
+                                     device="cpu"), open_reader=lambda path: ClipReader(gray))
+batched = app.run_batched(chunk=3)
+assert app.run(render=False)["danger_counts"] == batched["danger_counts"] and batched["frames"] == 4
+assert lk_level.launches == 0
 assert blocked_mods() <= before
 print("OK")
 """

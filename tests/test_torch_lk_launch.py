@@ -1,8 +1,9 @@
 """The lk_level kernel's launch shapes, and what its integer sums assume.
 
 `launch_shape` picks the kernel's team (warps per point, window pixels per
-lane) from the window; csrc/lk_level.cu instantiates exactly the shapes of
-`LAUNCH_SHAPES`. The kernel sums A and b as integers (x 1024), exact on
+lane, and whether it walks a window past its slots) from the window;
+csrc/lk_level.cu instantiates exactly the shapes of `LAUNCH_SHAPES` and the
+walking `WALK_SHAPE`. The kernel sums A and b as integers (x 1024), exact on
 the 1/32-grid templates and windows every caller hands it: these tests
 hold the callers' templates to that grid and its bounds. The kernels
 themselves run only on the GPU (tests/test_torch_cuda.py); here the
@@ -22,6 +23,7 @@ from hackathonopticalflow_tpu_torch.ops import lk as tlk
 from hackathonopticalflow_tpu_torch.ops.lk_level import (
     LAUNCH_SHAPES,
     MAX_PIXELS,
+    WALK_SHAPE,
     launch_shape,
     lk_level,
     lk_level_reference,
@@ -45,8 +47,8 @@ REPO_WINDOWS = sorted(
 def test_launch_shape_covers_window(win):
     """The team's slots hold the window, with at most max(64, 2 x
     pixels) slots: at most half of them idle past 64."""
-    warps, k = launch_shape(*win)
-    assert (warps, k) in LAUNCH_SHAPES
+    warps, k, walk = launch_shape(*win)
+    assert (warps, k) in LAUNCH_SHAPES and not walk
     slots, npix = 32 * warps * k, win[0] * win[1]
     assert npix <= slots <= max(64, 2 * npix)
 
@@ -55,28 +57,33 @@ def test_launch_shape_main_windows():
     """The tracker's 15 x 15 on 4 warps (2 px per lane); the sparse
     grid's 45 x 45 on 8 warps (8 px per lane); small windows on one or
     two warps."""
-    assert launch_shape(15, 15) == (4, 2)
-    assert launch_shape(45, 45) == (8, 8)
-    assert launch_shape(45, 21) == (8, 4)
-    assert launch_shape(7, 7) == (1, 2)
-    assert launch_shape(11, 11) == (2, 2)
+    assert launch_shape(15, 15) == (4, 2, False)
+    assert launch_shape(45, 45) == (8, 8, False)
+    assert launch_shape(45, 21) == (8, 4, False)
+    assert launch_shape(7, 7) == (1, 2, False)
+    assert launch_shape(11, 11) == (2, 2, False)
 
 
-@pytest.mark.parametrize("win", [(46, 45), (46, 46), (64, 64), (MAX_PIXELS + 1, 1)])
+@pytest.mark.parametrize("win", [(46, 45), (46, 46), (64, 64), (91, 91), (MAX_PIXELS + 1, 1)])
 def test_launch_shape_raises_past_budget(win):
-    with pytest.raises(ValueError, match="budget"):
-        launch_shape(*win)
+    """Past the slots' budget the launch no longer raises: the walking
+    shape takes any window (tests/test_torch_cuda.py holds it to the plain
+    version at 46 x 46, 64 x 64 and 91 x 91)."""
+    assert win[0] * win[1] > MAX_PIXELS
+    assert launch_shape(*win) == (*WALK_SHAPE, True)
 
 
 def test_launch_shapes_double_and_match_the_source():
     """Slots double from shape to shape, the last is the budget, and the
-    CUDA source instantiates exactly these shapes."""
+    CUDA source instantiates exactly these shapes and the walking one."""
     slots = [32 * w * k for w, k in LAUNCH_SHAPES]
     assert all(b == 2 * a for a, b in zip(slots, slots[1:]))
     assert slots[-1] == MAX_PIXELS
     src = (CSRC / "lk_level.cu").read_text()
     shapes = {(int(w), int(k)) for w, k in re.findall(r"^\s*LK_SHAPE\((\d+), (\d+)\)\s*$", src, re.M)}
     assert shapes == set(LAUNCH_SHAPES)
+    walks = {(int(w), int(k)) for w, k in re.findall(r"^\s*LK_WALK\((\d+), (\d+)\)\s*$", src, re.M)}
+    assert walks == {WALK_SHAPE}
 
 
 def test_cpu_path_unchanged_past_budget():
