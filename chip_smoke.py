@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's sparse pathfinder path (and its other LK
 configurations: the blocked grid kernel, the lanes kernel without a
 rescue, the exact path), its dense Farneback path, its Shi-Tomasi +
-forward-backward LK tracker and its pathfinder app once on one GPU.
+forward-backward LK tracker, its pathfinder app, its ego-motion
+(tracker -> keyframe windows -> BA) and its tracker app once on one GPU.
 
 Run from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
@@ -80,7 +81,21 @@ Phases, in order; any failure exits non-zero:
     sums; run over 8 pairs with the same counts; a checkpointed run of 24
     pairs and its resume with the full run's counts; 2 frames composited
     with their danger lamps; the app's fps (best of 3, render off) beside
-    phase 5's scan fps.
+    phase 5's scan fps;
+16. ego-motion (nav/odometry.py): collect_tracks over the 49-frame clip at
+    TrackerParams(), 6 lk_level and 8 patch_bilinear launches a step, its
+    table identical to phase 10's track_video history; ego_motion_track at
+    OdometryConfig() on it (keyframes, windows, BA cost; the zoom clip is a
+    plane, so its direction is printed, not held); on scene_table()'s 3D
+    scene (256 slots, 49 frames): forward flight, the BA chain's ATE within
+    1% of the trajectory's span, and the GPU's geometry against the CPU's
+    (identical keyframes, centres within 1e-3 of the span); tracking fps,
+    geometry ms on both devices and the GPU's syncs per clip;
+17. the tracker app (apps/tracker_app.py) with the pose on, over 48 frames
+    through ClipReader: both kernels at every level of every step, the
+    final tracks and heads equal to track_video's, a checkpointed run and
+    its resume equal to the full run (poses included), its fps (best of 3)
+    beside phase 11's tracker scan, and its syncs per frame.
 
 Each kernel's record carries its device time per shape of the main paths
 (shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
@@ -96,7 +111,9 @@ time; lk_level has no such call.
 
 The clips are synthetic: a smooth random texture (seeded torch.Generator)
 zoomed about the frame centre by ZOOM per frame, as in forward flight, so
-the flow of every pixel is known exactly.
+the flow of every pixel is known exactly. The ego-motion geometry also
+runs on scene_table(), a track table of random 3D landmarks seen by a
+camera in forward flight, whose trajectory is known.
 
 Before the last line come the GPU's name and power limit (nvidia-smi) and
 the kernels' JSON record; the last line is
@@ -224,6 +241,63 @@ class ClipReader:
 
     def release(self) -> None:
         pass
+
+
+def _np_rotation(w: np.ndarray) -> np.ndarray:
+    """Rodrigues in float64: so(3) vector -> rotation matrix."""
+    theta = float(np.linalg.norm(w))
+    if theta < 1e-12:
+        return np.eye(3)
+    k = w / theta
+    K = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
+
+
+def scene_table(seed: int = SEED, n_frames: int = N_FRAMES, slots: int = 256, h: int = H, w: int = W,
+                fov: float = 155.0, noise_px: float = 0.2):
+    """A track table of a camera flying forward through random 3D
+    landmarks, as collect_tracks returns it: (pos (F, T, 2) float32,
+    alive (F, T) bool, birth (F, T) int64), and the camera centres (F, 3).
+    The camera moves about 0.25 units a frame along its optical axis with
+    a little sideways drift and a slow rotation; each slot holds one
+    landmark, seen with Gaussian pixel noise while it is in front of the
+    camera and inside the frame. A slot whose landmark leaves the view is
+    dead for that frame and takes a new landmark ahead of the camera at
+    the next, born there."""
+    rng = np.random.RandomState(seed)
+    f = (w / 2.0) / np.tan(np.radians(fov) / 2.0)
+    steps = rng.normal([0.0, 0.0, 0.25], [0.02, 0.02, 0.02], (n_frames - 1, 3))
+    centers = np.concatenate([np.zeros((1, 3)), np.cumsum(steps, 0)])
+    angs = np.cumsum(rng.normal(0.0, 0.004, (n_frames, 3)), 0)
+    angs[0] = 0.0
+    rots = np.stack([_np_rotation(a) for a in angs])  # world -> camera
+
+    def spawn(k: int, n: int) -> np.ndarray:
+        z = rng.uniform(3.0, 25.0, n)
+        xc = np.stack([z * rng.uniform(-0.9, 0.9, n) * (w / 2.0) / f,
+                       z * rng.uniform(-0.9, 0.9, n) * (h / 2.0) / f, z], -1)
+        return xc @ rots[k] + centers[k]
+
+    pts = spawn(0, slots)
+    pos = np.zeros((n_frames, slots, 2), np.float32)
+    alive = np.zeros((n_frames, slots), bool)
+    birth = np.zeros((n_frames, slots), np.int64)
+    born = np.zeros(slots, np.int64)
+    dead = np.zeros(slots, bool)
+    for k in range(n_frames):
+        if dead.any():
+            pts[dead] = spawn(k, int(dead.sum()))
+            born[dead] = k
+        pc = (pts - centers[k]) @ rots[k].T
+        z = np.maximum(pc[:, 2], 1e-6)
+        uv = np.stack([f * pc[:, 0] / z + w / 2.0, f * pc[:, 1] / z + h / 2.0], -1)
+        uv += rng.normal(0.0, noise_px, uv.shape)
+        seen = (pc[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+        pos[k] = uv
+        alive[k] = seen
+        birth[k] = born
+        dead = ~seen
+    return (pos, alive, birth), centers
 
 
 def true_backward(pts: torch.Tensor) -> torch.Tensor:
@@ -843,6 +917,7 @@ def tracker_phases(dev, clip) -> dict:
         "plain_tracker_fps": plain_fps,
         "tracker_median_epe_px": med_epe,
         "tracker_survival_share": survival,
+        "history": (s0, heads, alive, length),  # phase 16 holds collect_tracks to it
     }
 
 def shifted_pair(dev, dx: int, dy: int, h: int = H, w: int = W) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1236,6 +1311,196 @@ def app_phase(dev, clip, scan_fps: float) -> dict:
     return {"app_fps": fps, "app_launches": launches}
 
 
+GEOMETRY_REPS = 3  # geometry timings, best of
+
+
+def sync_calls(fn) -> dict:
+    """The host's waits on the device during fn(), from torch.profiler:
+    counts of the CUDA API's synchronize calls (a device-to-host copy into
+    pageable memory, and a solver's status check, are a stream
+    synchronize each)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    return dict(collections.Counter(e.name for e in prof.events()
+                                    if e.name.startswith("cuda") and "Synchronize" in e.name))
+
+
+def ego_phase(dev, clip, history) -> dict:
+    """Phase 16: ego-motion at 1080p. collect_tracks over the 49-frame clip
+    at TrackerParams() (a seeding step, then chunks of 32 steps through
+    both kernels), its table identical to phase 10's track_video history;
+    ego_motion_track at OdometryConfig() on that table on the GPU: >= 4
+    keyframe centres, its direction printed. The zoom clip is one textured
+    plane, for which the 8-point estimate has a family of solutions: the
+    JAX package's chain on the same table is no closer to forward flight
+    (mean |unit-step z| 0.53). So forward flight is held on scene_table()'s
+    3D scene (256 slots, 49 frames, slots reborn as landmarks leave the
+    view): on the GPU, mean |unit-step z| > 0.9 and the BA chain's ATE
+    (Umeyama, with scale) within 1% of the true trajectory's span and no
+    worse than the raw chain's; the GPU against the CPU: identical
+    keyframes, centres within 1e-3 of the span. Tracking fps, geometry ms
+    on both devices (best of GEOMETRY_REPS) and the geometry's syncs."""
+    from hackathonopticalflow_tpu_torch.core import TrackerParams
+    from hackathonopticalflow_tpu_torch.flow.tracker import _heads
+    from hackathonopticalflow_tpu_torch.nav import odometry as odo
+    from hackathonopticalflow_tpu_torch.nav.camera import Pinhole
+    from hackathonopticalflow_tpu_torch.nav.metrics import ate_umeyama
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
+
+    params = TrackerParams()
+    n_frames = clip.shape[0]
+    s0, heads, alive, length = history
+    lk_level.launches = patch_bilinear.launches = 0
+    table = odo.collect_tracks(clip, params, device=dev)
+    torch.cuda.synchronize()
+    lk_n, pb_n = lk_level.launches, patch_bilinear.launches
+    got_len = torch.from_numpy(np.arange(n_frames)[:, None] + 1 - table.birth)
+    same = (torch.equal(torch.from_numpy(table.pos), torch.cat([_heads(s0)[None], heads]).cpu())
+            and torch.equal(torch.from_numpy(table.alive), torch.cat([s0.alive[None], alive]).cpu())
+            and torch.equal(got_len, torch.cat([s0.length[None], length]).cpu().to(torch.int64)))
+    log(f"ego collect_tracks ({n_frames} frames): lk_level launches {lk_n} ({6 * n_frames} expected), "
+        f"patch_bilinear launches {pb_n} ({8 * n_frames} expected); heads, alive and lengths identical to "
+        f"phase 10's track_video {same}; births past frame 0 {int((table.birth > 0).sum())}")
+    if not same or lk_n != 6 * n_frames or pb_n != 8 * n_frames:
+        raise SystemExit("collect_tracks disagrees with track_video")
+    track_s = min(host_seconds(lambda: odo.collect_tracks(clip, params, device=dev)) for _ in range(GEOMETRY_REPS))
+
+    cam = Pinhole.from_fov(W, H, 155.0)
+    cfg = odo.OdometryConfig()
+
+    def geometry(tab, device):
+        return odo.ego_motion_track(None, params, cam, cfg, table=tab, device=device)
+
+    res = geometry(table, dev)
+    steps = np.diff(res.centers, axis=0)
+    steps /= np.linalg.norm(steps, axis=-1, keepdims=True) + 1e-12
+    forward = float(np.abs(steps[:, 2]).mean())
+    cost0 = float(np.median([s["cost0"] for s in res.stats]))
+    cost = float(np.median([s["cost"] for s in res.stats]))
+    log(f"ego zoom clip: keyframes {res.kf_idx.tolist()}, {len(res.stats)} windows, median BA cost "
+        f"{cost0:.4g} -> {cost:.4g}, mean |unit-step z| {forward:.4f} (a planar scene: not held)")
+    if len(res.centers) < 4 or not np.isfinite(res.centers).all():
+        raise SystemExit("ego-motion on the zoom clip gave no chain")
+
+    scene, truth = scene_table(h=H, w=W)
+    stable = odo.TrackTable(*scene)
+    card, host = geometry(stable, dev), geometry(stable, "cpu")
+    ref = truth[card.kf_idx]
+    span = float(np.linalg.norm(ref - ref[0], axis=-1).max())
+    err = float(np.abs(card.centers - host.centers).max()) / span
+    same_kf = card.kf_idx.tolist() == host.kf_idx.tolist()
+    steps = np.diff(card.centers, axis=0)
+    steps /= np.linalg.norm(steps, axis=-1, keepdims=True) + 1e-12
+    scene_forward = float(np.abs(steps[:, 2]).mean())
+    ate = ate_umeyama(card.centers, ref)["rmse"] / span
+    ate_raw = ate_umeyama(card.raw_centers, ref)["rmse"] / span
+    log(f"ego 3D scene ({scene[0].shape[1]} slots, {scene[0].shape[0]} frames): keyframes {card.kf_idx.tolist()}, "
+        f"{len(card.stats)} windows, median BA cost {np.median([s['cost0'] for s in card.stats]):.4g} -> "
+        f"{np.median([s['cost'] for s in card.stats]):.4g}; mean |unit-step z| {scene_forward:.4f}; ATE / span: "
+        f"BA {ate:.3g}, raw chain {ate_raw:.3g}; GPU vs CPU: keyframes identical {same_kf}, centres max |d| / span "
+        f"{err:.3g}")
+    if len(card.centers) < 4 or not scene_forward > 0.9 or not ate <= min(0.01, ate_raw):
+        raise SystemExit("ego-motion on the 3D scene is not its forward flight")
+    if not same_kf or not err <= 1e-3:
+        raise SystemExit("the ego-motion geometry on the GPU disagrees with the CPU")
+    times = {}
+    for name, tab in (("scene", stable), ("zoom", table)):
+        for device in (dev, "cpu"):
+            key = f"{name} {'gpu' if device == dev else 'cpu'}"
+            times[key] = min(host_seconds(lambda: geometry(tab, device)) for _ in range(GEOMETRY_REPS)) * 1e3
+    syncs = sync_calls(lambda: geometry(stable, dev))
+    log(f"ego tracking {n_frames - 1} steps {H}p (collect_tracks): {(n_frames - 1) / track_s:.2f} fps "
+        f"({track_s * 1e3:.1f} ms, best of {GEOMETRY_REPS})")
+    log("ego geometry (ms, host clock, best of %d; CPU on %d threads): " % (GEOMETRY_REPS, torch.get_num_threads())
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f"; GPU syncs per 3D-scene clip {syncs}")
+    return {
+        "odometry_launches": (lk_n, pb_n),
+        "ego_tracking_fps": (n_frames - 1) / track_s,
+        "ego_geometry_ms": times,
+        "ego_geometry_syncs": syncs,
+        "ego_keyframes": len(card.kf_idx),
+        "ego_windows": len(card.stats),
+        "ego_gpu_vs_cpu_centres_over_span": err,
+        "ego_scene_forward": scene_forward,
+        "ego_scene_ate_over_span": ate,
+        "ego_scene_raw_ate_over_span": ate_raw,
+        "ego_zoom_forward": forward,
+    }
+
+
+def tracker_app_phase(dev, clip, tracker_fps: float) -> dict:
+    """Phase 17: the tracker app (apps/tracker_app.py) at TrackerParams()
+    with the pose on, over the clip's first 48 frames read from host memory
+    (ClipReader): both kernels at every level of every step; the final
+    tracks and heads equal to track_video's on the same frames (seeded on
+    frame 0); a checkpointed run of half the frames and its resume equal to
+    the full run, poses included; its fps (best of 3, render off) beside
+    phase 11's tracker scan, and its syncs per frame."""
+    import os
+
+    from hackathonopticalflow_tpu_torch.apps.tracker_app import TrackerApp, TrackerAppConfig
+    from hackathonopticalflow_tpu_torch.core import TrackerParams
+    from hackathonopticalflow_tpu_torch.flow import tracker
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
+
+    params = TrackerParams()
+    n = clip.shape[0] - 1
+    bgr = ClipReader(clip[:n].cpu().numpy()).bgr  # replicated once, outside the app's clock
+
+    def app(**kw):
+        cfg = TrackerAppConfig(video="synthetic zoom clip", params=params, device=str(dev), **kw)
+        return TrackerApp(cfg, open_reader=lambda path: ClipReader(bgr))
+
+    full_app = app(max_frames=n)
+    lk_level.launches = patch_bilinear.launches = 0
+    full = full_app.run(headless=True)
+    torch.cuda.synchronize()
+    lk_n, pb_n = lk_level.launches, patch_bilinear.launches
+    s0 = tracker.track_step(tracker.init_tracker(params), clip[0], clip[0], params, device=dev)
+    state, _ = tracker.track_video(clip[:n], params, s0, device=dev)
+    want_heads = tracker._heads(state)[state.alive].cpu().numpy()
+    same = full["final_tracks"] == int(state.alive.sum()) and np.array_equal(full["final_heads"], want_heads)
+    poses = full["poses"]
+    log(f"tracker app ({full['frames']} frames): lk_level launches {lk_n} ({6 * n} expected), patch_bilinear "
+        f"launches {pb_n} ({8 * n} expected); final tracks {full['final_tracks']}, equal to track_video's "
+        f"with its heads {same}; {len(poses)} poses, median inliers "
+        f"{float(np.median([p['inliers'] for p in poses])) if poses else 0.0}")
+    if not same or lk_n != 6 * n or pb_n != 8 * n or not poses:
+        raise SystemExit("the tracker app disagrees with track_video")
+
+    ck = os.path.join("build", "chip_smoke_tracker.ckpt.npz")
+    os.makedirs("build", exist_ok=True)
+    if os.path.exists(ck):
+        os.remove(ck)
+    part1 = app(max_frames=n // 2, checkpoint_path=ck, checkpoint_every=n // 2).run(headless=True)
+    part2 = app(max_frames=n, checkpoint_path=ck, checkpoint_every=n // 2).run(headless=True)
+    os.remove(ck)
+    resumed = (part2["final_tracks"] == full["final_tracks"]
+               and np.array_equal(part2["final_heads"], full["final_heads"])
+               and [(p["frame"], p["inliers"]) for p in part2["poses"]] == [(p["frame"], p["inliers"]) for p in poses]
+               and all(np.array_equal(a["R"], b["R"]) and np.array_equal(a["t"], b["t"])
+                       for a, b in zip(part2["poses"], poses)))
+    log(f"tracker app checkpointed run: {part1['frames']} frames, resumed for {part2['frames_this_run']}; "
+        f"equal to the full run {resumed}")
+    if not resumed or part2["frames_this_run"] != n - n // 2:
+        raise SystemExit("the resumed tracker app disagrees with the full run")
+
+    fps = max(full_app.run(headless=True)["fps"] for _ in range(3))
+    syncs = sync_calls(lambda: full_app.run(headless=True))
+    log(f"tracker app {n} frames {H}p (pose on, render off): {fps:.2f} fps, best of 3; tracker scan "
+        f"(phase 11) {tracker_fps:.2f} fps; app / scan {fps / tracker_fps:.3f}; syncs per frame "
+        + ", ".join(f"{k} {v / n:.1f}" for k, v in syncs.items()))
+    return {"tracker_app_launches": (lk_n, pb_n), "tracker_app_fps": fps, "tracker_app_poses": len(poses),
+            "tracker_app_syncs": syncs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device check ----
@@ -1280,6 +1545,8 @@ def main() -> int:
     gather = gather_rects_phase(dev, clip)
     scans = new_scan_phases(dev, clip)
     app = app_phase(dev, clip, sparse["scan_fps"])
+    ego = ego_phase(dev, clip, track.pop("history"))
+    track_app = tracker_app_phase(dev, clip, track["tracker_fps"])
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
@@ -1290,6 +1557,8 @@ def main() -> int:
     lk["launches_by_path"]["tracker"] = lk_track.pop("launches")
     lk["launches_by_path"].update(scans.pop("lk_level_launches"))
     lk["launches_by_path"]["app"] = app.pop("app_launches")
+    (lk["launches_by_path"]["odometry"], odo_pb) = ego.pop("odometry_launches")
+    (lk["launches_by_path"]["tracker_app"], app_pb) = track_app.pop("tracker_app_launches")
     lk["launches"] = sum(lk["launches_by_path"].values())
     lk["max_abs_err"] = max(lk["max_abs_err"], lk_track.pop("max_abs_err"), new_lk.pop("max_abs_err"))
     lk["replaces"] += ", hackathonopticalflow_tpu/ops/lk_pallas2.py:64"
@@ -1298,10 +1567,13 @@ def main() -> int:
     lk["variants"] = variants["lk_level"]
     pb = track.pop("kernel")
     pb["launches_by_path"]["exact"] = scans.pop("patch_bilinear_launches")["exact"]
+    pb["launches_by_path"]["odometry"] = odo_pb
+    pb["launches_by_path"]["tracker_app"] = app_pb
     pb["launches"] = sum(pb["launches_by_path"].values())
     merge_records(pb, exact_pb)
     pb["variants"] = variants["patch_bilinear"]
-    record = {"kernels": [lk, dense.pop("kernel"), pb, gather], **sparse, **dense, **track, **scans, **app}
+    record = {"kernels": [lk, dense.pop("kernel"), pb, gather], **sparse, **dense, **track, **scans, **app, **ego,
+              **track_app}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

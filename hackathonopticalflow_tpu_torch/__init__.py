@@ -17,11 +17,18 @@ ops       frame preparation, grid templates, windows at arbitrary points
           pyramidal LK on the grid or at arbitrary points, Shi-Tomasi
           corners, stats; dense image primitives, the coefficient warp
           (CUDA kernel `warp_bilinear` beside its plain version), Farneback
-nav       radial normalization (grid and dense) and the robust mask
+nav       radial normalization (grid and dense), the robust masks, danger
+          values; the camera, FOE, relative pose (RANSAC), Schur bundle
+          adjustment and the windowed odometry (ego_motion_track, on the
+          GPU unless the caller passes device="cpu"), metrics
 flow      grid LK flow over a frame pair or a clip (the pathfinder's loop);
           dense Farneback flow over a pair or a clip; the Shi-Tomasi +
           forward-backward LK tracker over a pair or a clip. These entry
           points run on the GPU unless the caller passes device="cpu".
+apps      the pathfinder app and the tracker app (a pose per frame),
+          with checkpoint / resume
+io, viz,  decode, gray conversion and prefetch; drawing; logging and
+utils     checkpoints (host side)
 kernels   nvcc build + ctypes loader for csrc/*.cu
 convert   JAX-package state and configs (numpy-convertible) -> this
           package's tensors and configs

@@ -1,8 +1,9 @@
 """JAX-package state -> this package's tensors and configs.
 
 The inputs are the JAX package's NamedTuples (PreparedFrame, LKResult,
-TrackerState), tuples of arrays (a Farneback pyramid) or dataclasses
-(LKParams, FarnebackParams, FeatureParams, TrackerParams), or anything
+TrackerState, BAState), tuples of arrays (a Farneback pyramid) or
+dataclasses (LKParams, FarnebackParams, FeatureParams, TrackerParams,
+OdometryConfig), or anything
 with the same fields whose leaves numpy can read (np.asarray of a
 jax.Array copies it to the host); this module never imports jax. With it
 a test feeds both packages the same pyramid and isolates one level, or
@@ -17,6 +18,8 @@ import torch
 
 from .core import FarnebackParams, FeatureParams, LKParams, TrackerParams
 from .flow.tracker import TrackerState
+from .nav.ba import BAState
+from .nav.odometry import OdometryConfig
 from .ops.lk import LKResult, PreparedFrame
 
 
@@ -96,3 +99,13 @@ def tracker_state(state, device="cpu") -> TrackerState:
         alive=_tensor(state.alive, device),
         frame_idx=int(np.asarray(state.frame_idx)),
     )
+
+
+def ba_state(state, device="cpu") -> BAState:
+    """A JAX BAState -> the port's on `device`."""
+    return BAState(*(_tensor(x, device) for x in state))
+
+
+def odometry_config(cfg) -> OdometryConfig:
+    """A JAX OdometryConfig -> the port's, field by field by name."""
+    return _by_name(OdometryConfig, cfg)

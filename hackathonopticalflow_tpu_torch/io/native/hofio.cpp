@@ -74,13 +74,16 @@ struct RingReader {
       if (stop.load()) break;
       uint8_t* slot = storage.data() + (head.load() % n_slots) * frame_bytes;
       size_t got = fread(slot, 1, (size_t)frame_bytes, f);
-      if (got != (size_t)frame_bytes) {
-        eof.store(true);
-        cv_data.notify_all();
-        break;
+      // every change a waiter's predicate reads is made under `mu`: one
+      // made without it between the waiter's test and its sleep, and its
+      // notify, would be lost, and the waiter would sleep forever
+      bool at_eof = got != (size_t)frame_bytes;
+      {
+        std::lock_guard<std::mutex> lk(mu);
+        if (at_eof) eof.store(true); else head.fetch_add(1);
       }
-      head.fetch_add(1);
       cv_data.notify_all();
+      if (at_eof) break;
     }
   }
 };
@@ -110,14 +113,20 @@ int hof_ring_next(void* handle, uint8_t* out) {
   const uint8_t* slot =
       r->storage.data() + (r->tail.load() % r->n_slots) * r->frame_bytes;
   memcpy(out, slot, (size_t)r->frame_bytes);
-  r->tail.fetch_add(1);
+  {
+    std::lock_guard<std::mutex> lk(r->mu);  // see RingReader::run
+    r->tail.fetch_add(1);
+  }
   r->cv_space.notify_all();
   return 1;
 }
 
 void hof_ring_close(void* handle) {
   auto* r = (RingReader*)handle;
-  r->stop.store(true);
+  {
+    std::lock_guard<std::mutex> lk(r->mu);
+    r->stop.store(true);
+  }
   r->cv_space.notify_all();
   r->cv_data.notify_all();
   if (r->worker.joinable()) r->worker.join();

@@ -5,7 +5,9 @@ The reference's loop decodes a frame, converts it, computes, then shows it,
 fully serially (pathfinder_viewer.py:270-358). Here a background thread
 decodes and converts each frame to gray into a bounded queue, so decode
 overlaps the device's work. The thread touches no CUDA state: it yields
-host uint8 arrays, and the consumer moves them to the device.
+host uint8 arrays, and the consumer moves them to the device. An error in
+the reader or the gray conversion ends the thread and is raised in the
+consuming thread, after the frames before it.
 """
 
 from __future__ import annotations
@@ -69,21 +71,28 @@ class FramePrefetcher:
 
     def _work(self):
         n = 0
-        while self.max_frames is None or n < self.max_frames:
-            frame = self.reader.read()
-            if frame is None:
-                break
-            g = to_gray(frame)
-            if not self._put((frame, g) if self.keep_bgr else g):
-                return
-            n += 1
-        self._put(None)
+        try:
+            while self.max_frames is None or n < self.max_frames:
+                frame = self.reader.read()
+                if frame is None:
+                    break
+                g = to_gray(frame)
+                if not self._put((frame, g) if self.keep_bgr else g):
+                    return
+                n += 1
+        except Exception as e:  # handed to the consumer, which raises it
+            self._put(e)
+        finally:
+            # the end marker, always: without it the consumer waits forever
+            self._put(None)
 
     def __iter__(self):
         while True:
             item = self.q.get()
             if item is None:
                 return
+            if isinstance(item, Exception):
+                raise item
             yield item
 
     def close(self) -> None:

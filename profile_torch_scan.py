@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's 1080p sparse scan, 720p dense scan,
-1080p tracker scan or 1080p pathfinder app, on one CUDA GPU.
+1080p tracker scan, 1080p pathfinder app or 1080p ego-motion geometry, on
+one CUDA GPU.
 
 Run from the repository root:
 
-    python3 profile_torch_scan.py [--path sparse|dense|tracker|app] [--pairs 8] [--out PATH]
+    python3 profile_torch_scan.py [--path sparse|dense|tracker|app|ego] [--pairs 8] [--out PATH]
 
 Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip:
 `lk_grid_flow_video` at the production params (--path sparse, the
@@ -13,7 +14,9 @@ dense), `track_video` at TrackerParams() after a seeding step on the
 first frame (--path tracker; a step per pair) or the pathfinder app's
 `run_batched` at the production params, chunks of APP_CHUNK pairs, render
 off, its frames read from host memory (--path app; host API calls are
-also given per chunk). It prints:
+also given per chunk) or ego_motion_track's geometry at OdometryConfig()
+on chip_smoke.py's 3D-scene track table of `--pairs` + 1 frames and 256
+slots (--path ego; a frame per pair). It prints:
 - the GPU's name and power limit (nvidia-smi);
 - the scan's wall time without the profiler (best of 3) and the device
   time that torch.profiler records over one more scan, so the device's
@@ -29,9 +32,12 @@ also given per chunk). It prints:
   farneback_prepared; tracker: prepare_frame, one pyr_lk_prepared,
   good_features_to_track, _detect_mask, and track_step_prepared on a step
   without and with detection; app: the gray conversion of one frame (host
-  clock) and one chunk's device work.
+  clock) and one chunk's device work; ego: select_keyframes, the first
+  group of windows' solve (RANSAC chain, triangulation, gate, BA) and,
+  for scale, collect_tracks over the zoom clip's first `--pairs` + 1
+  frames.
 The full profiler tables go to --out (default
-build/profile_torch_scan[_dense|_tracker].txt); the last line is the
+build/profile_torch_scan[_<path>].txt); the last line is the
 summary as one JSON object.
 """
 
@@ -49,7 +55,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import APP_CHUNK, DENSE_CELL, DENSE_H, DENSE_W, H, W, ClipReader, cuda_ms, make_clip
+from chip_smoke import APP_CHUNK, DENSE_CELL, DENSE_H, DENSE_W, H, W, ClipReader, cuda_ms, make_clip, scene_table
 from hackathonopticalflow_tpu_torch.core import (
     FarnebackParams,
     FilterParams,
@@ -215,7 +221,37 @@ def app_setup(dev, pairs: int):
     return scan, stages, f"1080p, chunks of {chunk}"
 
 
-SETUPS = {"sparse": sparse_setup, "dense": dense_setup, "tracker": tracker_setup, "app": app_setup}
+def ego_setup(dev, pairs: int):
+    """The ego-motion geometry over a 3D-scene table of `pairs` + 1 1080p
+    frames and its stage timer."""
+    from hackathonopticalflow_tpu_torch.nav import odometry as odo
+    from hackathonopticalflow_tpu_torch.nav.camera import Pinhole
+
+    params = TrackerParams()
+    cam = Pinhole.from_fov(W, H, 155.0)
+    cfg = odo.OdometryConfig()
+    table = odo.TrackTable(*scene_table(n_frames=pairs + 1)[0])
+
+    def scan():
+        return odo.ego_motion_track(None, params, cam, cfg, table=table, device=dev)
+
+    def stages():
+        clip = make_clip(dev)[: pairs + 1]
+        kf = odo.select_keyframes(table, cam, cfg, dev)
+        out = {"collect_tracks": cuda_ms(lambda: odo.collect_tracks(clip, params, device=dev), 2),
+               "select_keyframes": cuda_ms(lambda: odo.select_keyframes(table, cam, cfg, dev), 3)}
+        wins = [odo.build_window(table, kf[i : i + cfg.window], cfg) for i in range(len(kf) - cfg.window + 1)]
+        obs = cam.normalize(np.stack([w[0] for w in wins])).to(dev)
+        mask = torch.from_numpy(np.stack([w[1] for w in wins])).to(dev)
+        solved = odo.resolve_config(cfg, cam)
+        out[f"_window_solve of {len(wins)} windows"] = cuda_ms(lambda: odo._window_solve(obs, mask, solved), 3)
+        return out
+
+    return scan, stages, "1080p, 256 slots"
+
+
+SETUPS = {"sparse": sparse_setup, "dense": dense_setup, "tracker": tracker_setup, "app": app_setup,
+          "ego": ego_setup}
 
 
 def main() -> int:

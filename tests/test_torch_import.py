@@ -23,7 +23,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     names.add(m.name[len(pkg.__name__) + 1:])
 assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.features",
         "ops.patch_bilinear", "flow.tracker", "ops.gather_rects", "apps.pathfinder", "nav.danger",
-        "ops.color", "io.prefetch", "io.native_lib", "viz.layers", "utils.checkpoint"} <= names, names
+        "ops.color", "io.prefetch", "io.native_lib", "viz.layers", "utils.checkpoint", "nav.camera",
+        "nav.foe", "nav.metrics", "nav.pose", "nav.ba", "nav.odometry", "apps.tracker_app"} <= names, names
 from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
@@ -78,6 +79,19 @@ app = PathfinderApp(PathfinderConfig(video="clip", max_frames=4, lk=LKParams(gri
 batched = app.run_batched(chunk=3)
 assert app.run(render=False)["danger_counts"] == batched["danger_counts"] and batched["frames"] == 4
 assert lk_level.launches == 0
+
+from chip_smoke import scene_table
+from hackathonopticalflow_tpu_torch.apps.tracker_app import TrackerApp, TrackerAppConfig
+from hackathonopticalflow_tpu_torch.nav.camera import Pinhole
+from hackathonopticalflow_tpu_torch.nav.odometry import OdometryConfig, TrackTable, ego_motion_track
+table, _ = scene_table(n_frames=10, slots=48, h=180, w=320)
+ego = ego_motion_track(None, params, Pinhole.from_fov(320, 180), OdometryConfig(), table=TrackTable(*table),
+                       device="cpu")
+assert len(ego.kf_idx) >= 3 and ego.centers.shape == (len(ego.kf_idx), 3)
+tracked = TrackerApp(TrackerAppConfig(video="clip", params=params, max_frames=4, device="cpu"),
+                     open_reader=lambda path: ClipReader(gray)).run()
+assert tracked["frames"] == 4 and len(tracked["poses"]) <= 3
+assert patch_bilinear.launches == 0 and lk_level.launches == 0
 assert blocked_mods() <= before
 print("OK")
 """

@@ -2,6 +2,7 @@
 frame ring, contours) against the JAX package's copy, the frame
 prefetcher, and checkpoint round trips."""
 
+import threading
 from pathlib import Path
 from typing import NamedTuple
 from unittest import mock
@@ -58,6 +59,29 @@ def test_raw_frame_ring_in_order_until_eof(tmp_path, n_slots):
     assert all(np.array_equal(a, b) for a, b in zip(got, frames))
 
 
+def test_raw_frame_ring_one_slot_stress(tmp_path):
+    """100,000 one-byte frames through one slot: producer and consumer hand
+    the slot back and forth at every frame, so a wakeup the ring loses
+    leaves one of them asleep. The reader runs in a helper thread so that a
+    hang fails the test."""
+    n = 100_000
+    frames = (np.arange(n) % 251).astype(np.uint8)
+    path = tmp_path / "tiny.raw"
+    path.write_bytes(frames.tobytes())
+    got = []
+
+    def consume():
+        with tnative.RawFrameRing(str(path), (1, 1), 1) as ring:
+            while (f := ring.next()) is not None:
+                got.append(int(f[0, 0]))
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive(), f"the ring stopped after {len(got)} frames"
+    assert np.array_equal(np.asarray(got), frames)
+
+
 def test_raw_frame_ring_missing_file(tmp_path):
     with pytest.raises(FileNotFoundError):
         tnative.RawFrameRing(str(tmp_path / "none.raw"), (4, 4))
@@ -101,6 +125,38 @@ def test_prefetcher_close_stops_early():
     next(it)
     pre.close()
     assert not pre._thread.is_alive()
+
+
+class _FailingReader(ClipReader):
+    """Raises on its 3rd read."""
+
+    def read(self):
+        if self.pos == 2:
+            raise OSError("decode failed at frame 2")
+        return super().read()
+
+
+def test_prefetcher_raises_reader_error():
+    """A reader error reaches the consumer after the frames before it,
+    instead of leaving it waiting for frames that never come. The consumer
+    runs in a helper thread so that a hang fails the test."""
+    got, raised = [], []
+
+    def consume():
+        pre = FramePrefetcher("clip", depth=2, open_reader=lambda path: _FailingReader(_gray_clip(9)))
+        try:
+            for g in pre:
+                got.append(g)
+        except OSError as e:
+            raised.append(e)
+        finally:
+            pre.close()
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive(), "the consumer still waits for frames"
+    assert len(got) == 2 and [str(e) for e in raised] == ["decode failed at frame 2"]
 
 
 class _Pose(NamedTuple):
