@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sparse pathfinder path (and its other LK
 configurations: the blocked grid kernel, the lanes kernel without a
-rescue, the exact path), its dense Farneback path, its Shi-Tomasi +
-forward-backward LK tracker, its pathfinder app, its ego-motion
-(tracker -> keyframe windows -> BA) and its tracker app once on one GPU.
+rescue, the exact path), its dense Farneback path (in every warp mode),
+its Shi-Tomasi + forward-backward LK tracker, its pathfinder app, its
+ego-motion (tracker -> keyframe windows -> BA), its tracker app and its
+dense viewer once on one GPU.
 
 Run from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
@@ -95,7 +96,24 @@ Phases, in order; any failure exits non-zero:
     through ClipReader: both kernels at every level of every step, the
     final tracks and heads equal to track_video's, a checkpointed run and
     its resume equal to the full run (poses included), its fps (best of 3)
-    beside phase 11's tracker scan, and its syncs per frame.
+    beside phase 11's tracker scan, and its syncs per frame;
+18. warp_bilinear's slab geometry (warp_mode "pallas", and "pallas_bf16"
+    on a bf16 source) against its plain version at the 4 720p level sizes
+    (the flow of one iteration) and on an out-of-margin field whose
+    samples clamp (90x160 and 720x1280): identical; each variant's device
+    time per level, its bound and F.grid_sample's time;
+19. the other warp modes over the 24-pair 720p clip: farneback_flow_video
+    in "packed", "pallas" and "pallas_bf16", farneback_flow pair by pair
+    in "image" and "hybrid": finite, median EPE < TOL_DENSE_EPE_PX,
+    warp_bilinear 12 times a pair in the coefficient modes (4 in
+    "hybrid", none in "image"), the first 2 pairs equal to the plain path
+    where the kernel runs; each mode's fps and the exact scan's, timed in
+    turns;
+20. the dense viewer (apps/dense_viewer.py) at its defaults over the
+    clip's first DENSE_VIEWER_PAIRS pairs through ClipReader, headless,
+    with the dense, HSV and contour layers on: each pair's flow equal to farneback_flow's and
+    its sparse result to lk_grid_flow's, frames and contours drawn; the
+    app's fps beside the scans'.
 
 Each kernel's record carries its device time per shape of the main paths
 (shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
@@ -583,7 +601,7 @@ def grid_sample_ms(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_
     )
 
 
-def dense_phases(dev) -> dict:
+def dense_phases(dev, clip) -> dict:
     """Phases 6-8: the dense Farneback path through warp_bilinear."""
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
     from hackathonopticalflow_tpu_torch.flow import dense
@@ -593,7 +611,6 @@ def dense_phases(dev) -> dict:
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 
     params = FarnebackParams()
-    clip = make_clip(dev, DENSE_H, DENSE_W, DENSE_FRAMES, DENSE_CELL)
     pairs = DENSE_FRAMES - 1
     log(f"dense clip: {tuple(clip.shape)} uint8, lattice {DENSE_CELL} px, zoom {ZOOM}/frame, {params}")
 
@@ -1501,6 +1518,217 @@ def tracker_app_phase(dev, clip, tracker_fps: float) -> dict:
             "tracker_app_syncs": syncs}
 
 
+SLAB_SPREAD_PX = 150.0  # amplitude of phase 18's out-of-margin field
+DENSE_VIEWER_PAIRS = 8  # the viewer renders on the host (numpy rasterizer without cv2)
+DENSE_MODES = ("packed", "pallas", "pallas_bf16", "image", "hybrid")
+
+
+def _slab_bytes_ops(c: int, hk: int, wk: int, src_bytes: int) -> tuple[float, float]:
+    """(bytes, float32 ops) of one slab warp: fx, fy and C source planes
+    read once, C float32 planes written; per pixel the corner clamps and
+    fractions (14 ops) and per channel the x-lerps and the y-lerp (9)."""
+    return (8 + c * (src_bytes + 4)) * hk * wk, (14 + 9 * c) * hk * wk
+
+
+def slab_phase(dev, clip) -> dict:
+    """Phase 18: warp_bilinear's slab geometry (warp_mode "pallas", and
+    "pallas_bf16" on a bf16 source) against its plain version on the
+    (5, Hk, Wk) coefficient pyramids of one 720p pair at the 4 level sizes,
+    sampled at the flow of one Farneback iteration, and on an
+    out-of-margin field (spread SLAB_SPREAD_PX px, samples clamped) at the
+    coarsest and finest sizes: identical. Device time of each variant per
+    level (graph replay), its bound (the bf16 source at 2 B a value) and
+    F.grid_sample's time on the float32 source (border padding: within the
+    margins the same samples; no PyTorch call samples a bf16 source at
+    float32 coordinates)."""
+    from hackathonopticalflow_tpu_torch.core import FarnebackParams
+    from hackathonopticalflow_tpu_torch.ops import farneback as fb
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import (
+        _corners,
+        slab_origins,
+        warp_bilinear,
+        warp_bilinear_reference,
+    )
+
+    out = {}
+    for variant, mode in (("f32", "pallas"), ("bf16", "pallas_bf16")):
+        params = FarnebackParams(warp_mode=mode)
+        rs0, rs1 = fb.prepare_frame(clip[0], params), fb.prepare_frame(clip[1], params)
+        src_bytes = 2 if variant == "bf16" else 4
+        max_err = 0.0
+        level_ms, level_plain_ms, level_lib_ms, level_bound_ms = {}, {}, {}, {}
+        n_bytes = f32_ops = 0.0
+        for r0, r1 in zip(rs0, rs1):
+            hk, wk = r0.shape[-2:]
+            zero = torch.zeros((hk, wk, 2), dtype=torch.float32, device=dev)
+            flow = fb._solve_flow(fb.update_matrices(r0, r1, zero, mode), params)
+            xs, ys = fb._pixel_coords(hk, wk, dev)
+            src = fb.warp_source(r1, mode)
+            key = f"{hk}x{wk}"
+            fields = [("flow", (xs + flow[..., 0]).contiguous(), (ys + flow[..., 1]).contiguous())]
+            if hk in (90, DENSE_H):
+                fields.append(("spread", (xs + SLAB_SPREAD_PX * torch.sin(ys / 3.0 + xs / 17.0)).contiguous(),
+                               (ys + SLAB_SPREAD_PX * torch.cos(xs / 5.0)).expand(hk, wk).contiguous()))
+            for field, fx, fy in fields:
+                warp_bilinear.launches = 0
+                out_k = warp_bilinear(src, fx, fy, "slab")
+                torch.cuda.synchronize()
+                launches = warp_bilinear.launches
+                out_p = warp_bilinear_reference(src, fx, fy, "slab")
+                err = float((out_k - out_p).abs().max())
+                same = bool(torch.equal(out_k, out_p))
+                x0, y0, _, _ = _corners(fx, fy, hk, wk)
+                y_s, x_s = slab_origins(x0.long(), y0.long())
+                clamped = float(((y_s != y0.long()) | (x_s != x0.long())).double().mean())
+                log(f"slab {variant} {key} {field}: launches {launches}, max |d| {err:.3g}, identical {same}, "
+                    f"clamped share {clamped:.4f}")
+                if launches != 1 or not same or (field == "spread") != (clamped > 0.1):
+                    raise SystemExit(f"slab {variant} {key} {field}: kernel disagrees with the plain version")
+                max_err = max(max_err, err)
+            _, fx, fy = fields[0]
+            level_ms[key] = graph_ms(lambda: warp_bilinear(src, fx, fy, "slab"), 50)
+            level_plain_ms[key] = graph_ms(lambda: warp_bilinear_reference(src, fx, fy, "slab"), 10)
+            level_lib_ms[key] = grid_sample_ms(r1, fx, fy, "border", 50)
+            lv_bytes, lv_ops = _slab_bytes_ops(r1.shape[0], hk, wk, src_bytes)
+            level_bound_ms[key], _ = bound(lv_bytes, lv_ops)
+            n_bytes += lv_bytes
+            f32_ops += lv_ops
+            log(f"slab {variant} {key}: device time (graph replay) warp_bilinear {level_ms[key]:.4f} ms, "
+                f"plain {level_plain_ms[key]:.4f} ms, F.grid_sample {level_lib_ms[key]:.4f} ms, "
+                "bound %.4f ms (%s)" % bound(lv_bytes, lv_ops))
+        bound_ms, bound_by = bound(n_bytes, f32_ops)
+        log(f"warp_bilinear slab {variant} per level (device ms, kernel / plain / F.grid_sample / bound): "
+            + ", ".join(f"{k} {level_ms[k]:.4f} / {level_plain_ms[k]:.4f} / {level_lib_ms[k]:.4f} / "
+                        f"{level_bound_ms[k]:.4f}" for k in level_ms)
+            + f"; bound of the 4 levels {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB)")
+        out[variant] = {
+            "name": f"warp_bilinear slab {variant}",
+            "route": "cuda",
+            "source": "hackathonopticalflow_tpu_torch/csrc/warp_bilinear.cu",
+            "replaces": "hackathonopticalflow_tpu/ops/warp_pallas.py:207",
+            "launches": 0,
+            "max_abs_err": max_err,
+            "ms": sum(level_ms.values()),
+            "plain_ms": sum(level_plain_ms.values()),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": sum(level_lib_ms.values()),
+            "shape_ms": level_ms,
+            "shape_bound_ms": level_bound_ms,
+            "shape_library_ms": level_lib_ms,
+        }
+    return out
+
+
+def dense_modes_phase(dev, clip) -> dict:
+    """Phase 19: the other warp modes over phase 7's 24-pair 720p clip:
+    farneback_flow_video in the coefficient modes ("packed", "pallas",
+    "pallas_bf16"), farneback_flow pair by pair in "image" and "hybrid"
+    (the scan refuses them, as JAX's does). Finite flows of the clip's
+    shape, median endpoint error < TOL_DENSE_EPE_PX; warp_bilinear launched
+    12 times a pair in the coefficient modes, once a level (4) in "hybrid",
+    never in "image"; where it runs, the first 2 pairs equal to the plain
+    path's; every mode's fps and the exact scan's, timed in turns (best
+    of 2)."""
+    from hackathonopticalflow_tpu_torch.core import FarnebackParams
+    from hackathonopticalflow_tpu_torch.flow import dense
+    from hackathonopticalflow_tpu_torch.ops import farneback as fb
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
+
+    pairs = DENSE_FRAMES - 1
+    out = {"launches": {}, "fps": {}, "median_epe_px": {}}
+    runs = {"exact": lambda c: dense.farneback_flow_video(c, FarnebackParams(), device=dev)}
+    for mode in DENSE_MODES:
+        params = FarnebackParams(warp_mode=mode)
+        if mode in fb.COEF_MODES:
+            def run(c, params=params):
+                return dense.farneback_flow_video(c, params, device=dev)
+            per_pair = params.iterations * (params.levels + 1)
+        else:
+            def run(c, params=params):
+                return torch.stack([dense.farneback_flow(c[t], c[t + 1], params, device=dev)
+                                    for t in range(c.shape[0] - 1)])
+            per_pair = params.levels + 1 if mode == "hybrid" else 0
+        warp_bilinear.launches = 0
+        flows = run(clip)
+        torch.cuda.synchronize()
+        launches = warp_bilinear.launches
+        med_epe = dense_median_epe(flows)
+        ok = flows.shape == (pairs, DENSE_H, DENSE_W, 2) and bool(torch.isfinite(flows).all())
+        log(f"dense {mode}: warp_bilinear launches {launches} ({per_pair * pairs} expected), median EPE "
+            f"{med_epe:.4f} px, finite and shaped {ok}")
+        if not ok or launches != per_pair * pairs or not med_epe < TOL_DENSE_EPE_PX:
+            raise SystemExit(f"the dense path in warp_mode {mode!r} is wrong")
+        if per_pair:
+            with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
+                plain = run(clip[: DENSE_PLAIN_PAIRS + 1])
+            same = bool(torch.equal(plain, flows[:DENSE_PLAIN_PAIRS]))
+            log(f"dense {mode} plain path ({DENSE_PLAIN_PAIRS} pairs): identical to the kernel path {same}")
+            if not same:
+                raise SystemExit(f"the dense kernel path in warp_mode {mode!r} disagrees with the plain path")
+        runs[mode] = run
+        out["launches"][mode] = launches
+        out["median_epe_px"][mode] = med_epe
+    # the scans are host-bound, and the host is shared: every mode, the
+    # exact scan among them, timed in turns, best of 2
+    best = {m: float("inf") for m in runs}
+    for _ in range(2):
+        for m, run in runs.items():
+            best[m] = min(best[m], host_seconds(lambda: run(clip)))
+    out["fps"] = {m: pairs / t for m, t in best.items()}
+    log(f"dense scans {pairs} pairs {DENSE_H}p, timed in turns (fps, best of 2; / exact): "
+        + ", ".join(f"{m} {f:.2f} ({f / out['fps']['exact']:.3f})" for m, f in out["fps"].items()))
+    return out
+
+
+def dense_viewer_phase(dev, clip, scan_fps: dict) -> dict:
+    """Phase 20: the dense viewer (apps/dense_viewer.py) at its defaults
+    (FarnebackParams(), the exact LK path with PROTO_FILTER) over the first
+    DENSE_VIEWER_PAIRS pairs of phase 7's 720p clip read from host memory
+    (ClipReader), headless, with
+    the dense, HSV and contour layers on (rendered through viz/'s numpy
+    rasterizer where there is no cv2): each pair's flow equal to
+    farneback_flow's and its sparse result to lk_grid_flow's, every
+    rendered frame and contour layer drawn, warp_bilinear 12 and lk_level
+    3 times a pair; the app's fps (render and contours included) beside
+    the scans'."""
+    from hackathonopticalflow_tpu_torch.apps.dense_viewer import DenseViewerApp, DenseViewerConfig
+    from hackathonopticalflow_tpu_torch.flow import dense, lk_grid
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
+
+    pairs = DENSE_VIEWER_PAIRS
+    bgr = ClipReader(clip[: pairs + 1].cpu().numpy()).bgr  # replicated once, outside the app's clock
+    cfg = DenseViewerConfig(video="synthetic zoom clip", add_flow=True, add_hsv=True, show_contours=True,
+                            max_frames=pairs, device=str(dev))
+    app = DenseViewerApp(cfg, open_reader=lambda path: ClipReader(bgr))
+    records = []
+    warp_bilinear.launches = lk_level.launches = patch_bilinear.launches = 0
+    stats = app.run(headless=True, on_pair=lambda *a: records.append(a))
+    torch.cuda.synchronize()
+    launches = (warp_bilinear.launches, lk_level.launches, patch_bilinear.launches)
+    per_pair = cfg.fb.iterations * (cfg.fb.levels + 1)
+    log(f"dense viewer ({stats['frames']} pairs): warp_bilinear launches {launches[0]} ({per_pair * pairs} "
+        f"expected), lk_level {launches[1]}, patch_bilinear {launches[2]}")
+    if stats["frames"] != pairs or launches[0] != per_pair * pairs or launches[1] < 3 * pairs:
+        raise SystemExit("the dense viewer did not run its kernels at every pair")
+    for t, (flow, sres, frame, contours) in enumerate(records):
+        want = dense.farneback_flow(clip[t], clip[t + 1], cfg.fb, device=dev)
+        ws = lk_grid.lk_grid_flow(clip[t], clip[t + 1], app._pts_dev, cfg.lk, filt=cfg.filt, device=dev)
+        same = bool(torch.equal(flow, want)) and all(
+            torch.equal(getattr(sres, k), getattr(ws, k)) for k in ("raw_next_pts", "good", "next_pts", "flow"))
+        drawn = frame.shape == (DENSE_H, DENSE_W, 3) and frame.dtype == np.uint8 and bool((contours > 0).any())
+        if not same or not drawn:
+            raise SystemExit(f"dense viewer pair {t}: flow equal {same}, frame and contours drawn {drawn}")
+    good = float(np.mean([float(r[1].good.double().mean()) for r in records]))
+    log(f"dense viewer: {pairs} pairs equal to farneback_flow and lk_grid_flow, frames and contours drawn, "
+        f"good share {good:.4f}")
+    log(f"dense viewer {pairs} pairs {DENSE_H}p (headless, dense + HSV + contours rendered): {stats['fps']:.2f} fps; "
+        "dense scans (phase 19): " + ", ".join(f"{m} {v:.2f}" for m, v in scan_fps.items()) + " fps")
+    return {"dense_viewer_fps": stats["fps"], "dense_viewer_launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device check ----
@@ -1538,7 +1766,8 @@ def main() -> int:
     clip = make_clip(dev, H, W, N_FRAMES)
     log(f"1080p clip: {tuple(clip.shape)} uint8, zoom {ZOOM}/frame")
     sparse = sparse_phases(dev, clip)
-    dense = dense_phases(dev)
+    dense_clip = make_clip(dev, DENSE_H, DENSE_W, DENSE_FRAMES, DENSE_CELL)
+    dense = dense_phases(dev, dense_clip)
     track = tracker_phases(dev, clip)
     new_lk = new_lk_phases(dev, clip)
     exact_pb = exact_patch_phase(dev, clip)
@@ -1547,6 +1776,9 @@ def main() -> int:
     app = app_phase(dev, clip, sparse["scan_fps"])
     ego = ego_phase(dev, clip, track.pop("history"))
     track_app = tracker_app_phase(dev, clip, track["tracker_fps"])
+    slab = slab_phase(dev, dense_clip)
+    modes = dense_modes_phase(dev, dense_clip)
+    viewer = dense_viewer_phase(dev, dense_clip, modes["fps"])
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
@@ -1572,8 +1804,20 @@ def main() -> int:
     pb["launches"] = sum(pb["launches_by_path"].values())
     merge_records(pb, exact_pb)
     pb["variants"] = variants["patch_bilinear"]
-    record = {"kernels": [lk, dense.pop("kernel"), pb, gather], **sparse, **dense, **track, **scans, **app, **ego,
-              **track_app}
+    (warp_viewer, lk["launches_by_path"]["dense_viewer"], pb["launches_by_path"]["dense_viewer"]) = viewer.pop(
+        "dense_viewer_launches")
+    lk["launches"] = sum(lk["launches_by_path"].values())
+    pb["launches"] = sum(pb["launches_by_path"].values())
+    warp = dense.pop("kernel")
+    warp["launches_by_path"].update({f"dense {m}": modes["launches"][m] for m in ("packed", "hybrid")})
+    warp["launches_by_path"]["dense_viewer"] = warp_viewer
+    warp["launches"] = sum(warp["launches_by_path"].values())
+    for variant, mode in (("f32", "pallas"), ("bf16", "pallas_bf16")):
+        slab[variant]["launches_by_path"] = {f"dense {mode}": modes["launches"][mode]}
+        slab[variant]["launches"] = modes["launches"][mode]
+    record = {"kernels": [lk, warp, slab["f32"], slab["bf16"], pb, gather], **sparse, **dense, **track, **scans,
+              **app, **ego, **track_app, "dense_modes_fps": modes["fps"],
+              "dense_modes_median_epe_px": modes["median_epe_px"], **viewer}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

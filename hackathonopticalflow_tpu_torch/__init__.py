@@ -16,7 +16,9 @@ ops       frame preparation, grid templates, windows at arbitrary points
           version; every LK configuration of the JAX package),
           pyramidal LK on the grid or at arbitrary points, Shi-Tomasi
           corners, stats; dense image primitives, the coefficient warp
-          (CUDA kernel `warp_bilinear` beside its plain version), Farneback
+          (CUDA kernel `warp_bilinear` beside its plain version, in the
+          exact gather's and the TPU slab's geometry), Farneback in every
+          warp mode
 nav       radial normalization (grid and dense), the robust masks, danger
           values; the camera, FOE, relative pose (RANSAC), Schur bundle
           adjustment and the windowed odometry (ego_motion_track, on the
@@ -26,7 +28,7 @@ flow      grid LK flow over a frame pair or a clip (the pathfinder's loop);
           forward-backward LK tracker over a pair or a clip. These entry
           points run on the GPU unless the caller passes device="cpu".
 apps      the pathfinder app and the tracker app (a pose per frame),
-          with checkpoint / resume
+          with checkpoint / resume; the dense viewer
 io, viz,  decode, gray conversion and prefetch; drawing; logging and
 utils     checkpoints (host side)
 kernels   nvcc build + ctypes loader for csrc/*.cu

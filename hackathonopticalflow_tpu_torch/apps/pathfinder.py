@@ -43,7 +43,7 @@ from ..flow.lk_grid import (
     pack_grid_result,
     unpack_grid_result,
 )
-from ..io.prefetch import FramePrefetcher, to_gray
+from ..io.prefetch import FramePrefetcher, to_gray, upload
 from ..io.video import HAVE_CV2, VideoReader
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import get_logger
@@ -113,21 +113,12 @@ class PathfinderApp:
         torch.cuda.synchronize(self.device)
         self._warm.add(chunk)
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        """u8 frames to the device, through pinned memory without blocking
-        the host (the caching host allocator keeps the pinned block until
-        the copy is done)."""
-        t = torch.from_numpy(frames)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def compute_frame(self, prev_gray: np.ndarray, gray: np.ndarray) -> GridFlowResult:
         """Device-side computation for one frame pair; returns without
         waiting for the device."""
         cfg = self.cfg
         return lk_grid_flow(
-            self._upload(prev_gray), self._upload(gray), self._pts_dev,
+            upload(prev_gray, self.device), upload(gray, self.device), self._pts_dev,
             cfg.lk, cfg.norm, cfg.filt, device=self.device,
         )
 

@@ -27,7 +27,7 @@ import torch
 from ..core import TrackerParams
 from ..flow.device import resolve_device
 from ..flow.tracker import _heads, init_tracker, track_step_prepared
-from ..io.prefetch import to_gray
+from ..io.prefetch import to_gray, upload
 from ..io.video import VideoReader
 from ..nav.camera import Pinhole
 from ..nav.pose import estimate_relative_pose
@@ -89,14 +89,6 @@ class TrackerApp:
         self.reader = open_reader(cfg.video)
         self.cam = Pinhole.from_fov(self.reader.width, self.reader.height, cfg.h_fov_deg)
 
-    def _upload(self, gray: np.ndarray) -> torch.Tensor:
-        """A u8 frame to the device as float32, through pinned memory
-        without blocking the host."""
-        t = torch.from_numpy(gray)
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(torch.float32)
-
     def _pose(self, prev_heads: torch.Tensor, prev_alive: torch.Tensor, state) -> np.ndarray:
         """[R (9), t (3), inliers, tracks alive at both ends] of the step
         from prev_heads to the state's heads, in one device-to-host copy."""
@@ -141,13 +133,15 @@ class TrackerApp:
         since_save = 0
         t0 = time.time()
         # the previous frame's prepared pyramid stays on the device
-        prev_prep = None if prev_gray is None else prepare_frame(self._upload(prev_gray), params.lk)
+        prev_prep = None
+        if prev_gray is not None:
+            prev_prep = prepare_frame(upload(prev_gray, self.device).to(torch.float32), params.lk)
         while cfg.max_frames is None or n < cfg.max_frames:
             frame = reader.read()
             if frame is None:
                 break
             gray = to_gray(frame)
-            img = self._upload(gray)
+            img = upload(gray, self.device).to(torch.float32)
             cur_prep = prepare_frame(img, params.lk)
             if prev_prep is None:
                 prev_prep = cur_prep  # the first step seeds detections on (f0, f0)

@@ -137,14 +137,29 @@ class FarnebackParams:
     """Farneback dense-flow parameters (cv2.calcOpticalFlowFarneback parity).
 
     warp_mode selects how the second frame's polynomial coefficients are
-    displaced by the current flow each iteration. The port runs "exact"
-    (bilinear warp of the 5 coefficient channels, OpenCV semantics: the
-    `warp_bilinear` kernel on CUDA tensors, its plain version on CPU
-    tensors, with the doubling box sum); "auto" (the default) means
-    "exact" here. The JAX package's TPU speed modes ("packed", "pallas",
-    "pallas_bf16") and re-expansion modes ("image", "hybrid") raise
-    NotImplementedError naming their ROADMAP item. The JAX field
-    warp_group_rows (Pallas tile geometry) is left out."""
+    displaced by the current flow each iteration (every mode of the JAX
+    package; the coefficient warps run the `warp_bilinear` kernel on CUDA
+    tensors, its plain version on CPU tensors):
+      - "exact": bilinear warp of the 5 coefficient channels, OpenCV
+        semantics (the kernel's gather geometry), with the doubling box
+        sum; the golden path;
+      - "packed": "exact" on coefficients whose channels 0-3 are rounded
+        to bf16 (the JAX package's bf16-pair gathers; ~1e-3 px);
+      - "pallas": the TPU slab kernel's function (the kernel's slab
+        geometry): samples more than 72 / 128 px past their (8, 128)
+        tile's minimum sample clamp to the slab edge, the blend is an
+        x-lerp then a y-lerp, and the box sum is an integral image
+        ("cumsum");
+      - "pallas_bf16": "pallas" on coefficients rounded to bf16 once per
+        level (the TPU's bf16 slab), blended in float32;
+      - "image": warp the level's smoothed frame once per iteration and
+        re-expand it (first-order equivalent for locally smooth flow);
+      - "hybrid": "image" warps for the early iterations, the exact
+        coefficient warp for each level's last matrix update;
+      - "auto" (the default): "exact" in the port, as the JAX package
+        resolves it off a TPU (on a TPU it picks "pallas").
+    The JAX field warp_group_rows (the Pallas kernel's row-group gating,
+    which never skips a row that carries weight) is left out."""
 
     pyr_scale: float = 0.5
     levels: int = 3

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..core import FarnebackParams
-from ..ops.farneback import farneback, farneback_prepared, prepare_frame
+from ..ops.farneback import COEF_MODES, farneback, farneback_prepared, prepare_frame, resolve_mode
 from .device import resolve_device
 
 
@@ -19,7 +19,13 @@ def farneback_flow_video(
     flow of each consecutive pair. Frames move to `device` (the GPU unless
     device="cpu") as they are and are cast there; each frame's prepared
     polynomial pyramid is built once and carried to the next pair, so the
-    result equals per-pair farneback() exactly."""
+    result equals per-pair farneback() exactly. The coefficient warp
+    modes only: "image" and "hybrid" re-expand each frame inside the
+    iteration and raise ValueError, as the JAX scan refuses them."""
+    params = resolve_mode(params)
+    if params.warp_mode not in COEF_MODES:
+        raise ValueError(f"farneback_flow_video runs the coefficient warp modes {COEF_MODES}, "
+                         f"not {params.warp_mode!r}: call farneback_flow per pair")
     device = resolve_device(device)
     frames = frames.to(device)
     prev = prepare_frame(frames[0], params)
@@ -37,8 +43,9 @@ def farneback_flow(
     params: FarnebackParams = FarnebackParams(),
     device: torch.device | str = "cuda",
 ) -> torch.Tensor:
-    """(..., H, W) grayscale pair -> (..., H, W, 2) dense flow, on the GPU
-    unless device="cpu". Leading batch axes (pairs of several streams, say)
-    run as one batch; each row equals the single-pair result."""
+    """(..., H, W) grayscale pair -> (..., H, W, 2) dense flow in any warp
+    mode, on the GPU unless device="cpu". Leading batch axes (pairs of
+    several streams, say) run as one batch; each row equals the
+    single-pair result."""
     device = resolve_device(device)
     return farneback(prev_gray.to(device), gray.to(device), params)

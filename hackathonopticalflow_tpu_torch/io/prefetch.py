@@ -33,6 +33,17 @@ def to_gray(frame: np.ndarray) -> np.ndarray:
     return bgr2gray(torch.from_numpy(np.ascontiguousarray(frame))).numpy()
 
 
+def upload(frame: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host frame to `device` in its own dtype (uint8 crosses as uint8):
+    on CUDA through pinned memory without blocking the host (the caching
+    host allocator keeps the pinned block until the copy is done); on the
+    CPU the frame's tensor itself."""
+    t = torch.from_numpy(frame)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class FramePrefetcher:
     """Background decode -> gray -> bounded queue; iterating yields gray
     (H, W) uint8 arrays, or (bgr, gray) pairs with keep_bgr.

@@ -1,5 +1,5 @@
 """Farneback dense optical flow (port of hackathonopticalflow_tpu/ops/farneback.py,
-warp_mode "exact").
+every warp mode).
 
 cv2.calcOpticalFlowFarneback as the reference calls it (DenseOF.py:127-157:
 pyr_scale 0.5, levels 3, winsize 15, iterations 3, poly_n 5, poly_sigma
@@ -11,56 +11,59 @@ pyr_scale 0.5, levels 3, winsize 15, iterations 3, poly_n 5, poly_sigma
 - polynomial expansion: separable Gaussian-weighted moments {g, x g,
   x^2 g} (replicate borders) combined into 5 coefficient channels
   [b_y, b_x, a_yy, a_xx, a_xy];
-- matrix update: bilinear warp of the second frame's coefficients by the
-  current flow (the `warp_bilinear` kernel), averaging, delta-b
-  linearized at the flow, OpenCV's edge down-weighting, the 5-channel
-  normal-equation field M;
-- flow update: box sums of M over winsize (doubling order, replicate
-  border) or the Gaussian window, then the 1e-3-damped 2x2 solve;
+- matrix update: the second frame's coefficients warped by the current
+  flow, averaging, delta-b linearized at the flow, OpenCV's edge
+  down-weighting, the 5-channel normal-equation field M. The warp mode
+  (FarnebackParams.warp_mode) picks how the coefficients are warped: the
+  `warp_bilinear` kernel's gather geometry ("exact"; "packed" on planes
+  0-3 rounded to bf16), its slab geometry ("pallas"; "pallas_bf16" on a
+  bf16 source), or a warp of the smoothed frame re-expanded ("image";
+  "hybrid": image warps, an exact last update per level);
+- flow update: box sums of M over winsize (doubling order; an
+  integral-image "cumsum" box in the pallas modes; replicate border) or
+  the Gaussian window, then the 1e-3-damped 2x2 solve;
 - coarse to fine: INTER_LINEAR flow upscale times 1/pyr_scale.
 
 Every function takes leading batch axes: frames (..., H, W), coefficients
-(..., 5, H, W), flow (..., H, W, 2). All arithmetic is elementwise or a
-fixed-order shifted sum, so a batch row equals the single-pair call bit
-for bit.
+(..., 5, H, W), flow (..., H, W, 2). All arithmetic is elementwise, a
+fixed-order shifted sum or a cumulative sum along one image axis, so a
+batch row equals the single-pair call bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
 from ..core import FarnebackParams
-from .image import box_sum, corr1d, gaussian_blur, resize_area, resize_bilinear, sep_conv2d
+from .image import box_sum, corr1d, gaussian_blur, pad_axis, resize_area, resize_bilinear, sep_conv2d
+from .warp import warp_image
 from .warp_bilinear import warp_bilinear
 
 # OpenCV edge down-weighting band (optflowgf.cpp FarnebackUpdateMatrices).
 _BORDER = 5
 _BORDER_SCALE = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], np.float32)
 
-# warp modes of the JAX package that the port does not run (ROADMAP.md,
-# queue 1, item 5), with what each would bring
-_UNPORTED_MODES = {
-    "packed": "bf16-pair coefficient gathers",
-    "pallas": "the TPU slab warp with the cumsum box sum",
-    "pallas_bf16": "bf16 slabs with the cumsum box sum",
-    "image": "warp the frame and re-expand it",
-    "hybrid": "image warps, an exact last update",
-}
+# FarnebackParams.warp_mode values: the coefficient modes warp the second
+# frame's 5 coefficient planes; "image" and "hybrid" warp its smoothed
+# frame and re-expand it
+COEF_MODES = ("exact", "packed", "pallas", "pallas_bf16")
+WARP_MODES = COEF_MODES + ("image", "hybrid")
+_SLAB_MODES = ("pallas", "pallas_bf16")
 
 
-def check_warp_mode(params: FarnebackParams) -> None:
-    """Raise unless params.warp_mode is one the port runs ('auto', 'exact')."""
-    mode = params.warp_mode
-    if mode in ("auto", "exact"):
-        return
-    if mode in _UNPORTED_MODES:
-        raise NotImplementedError(
-            f"warp_mode={mode!r} ({_UNPORTED_MODES[mode]}) is not ported yet: ROADMAP.md, queue 1, item 5"
-        )
-    raise ValueError(f"unknown warp_mode {mode!r}")
+def resolve_mode(params: FarnebackParams) -> FarnebackParams:
+    """params with warp_mode "auto" resolved to "exact", as the JAX
+    package resolves it off a TPU (on a TPU it picks "pallas",
+    ops/farneback.py:367-371); raises ValueError on an unknown mode."""
+    if params.warp_mode == "auto":
+        return dataclasses.replace(params, warp_mode="exact")
+    if params.warp_mode not in WARP_MODES:
+        raise ValueError(f"unknown warp_mode {params.warp_mode!r}")
+    return params
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,14 +146,23 @@ def _pixel_coords(h: int, w: int, device: torch.device):
     return xs, ys
 
 
-def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """The 5-channel normal-equation field M (..., 5, H, W) from both
-    frames' coefficients (..., 5, H, W) and the current flow (..., H, W, 2)
-    (OpenCV FarnebackUpdateMatrices; JAX warp_mode "exact").
+def warp_source(r1: torch.Tensor, mode: str) -> torch.Tensor:
+    """The second frame's coefficients (..., 5, H, W) as `mode`'s warp
+    reads them: "packed" rounds channels 0-3 to bf16 and back (JAX's bf16
+    pairs, _warp5_packed) and keeps channel 4 in float32; "pallas_bf16"
+    rounds all 5 to bf16 (the TPU's bf16 slab); the other modes read them
+    as they are. Both roundings are to nearest, ties to even, as JAX's
+    astype. r1 is fixed across a level's iterations, so the level rounds
+    it once."""
+    if mode == "packed":
+        return torch.cat([r1[..., :4, :, :].to(torch.bfloat16).to(torch.float32), r1[..., 4:, :, :]], dim=-3)
+    if mode == "pallas_bf16":
+        return r1.to(torch.bfloat16)
+    return r1
 
-    `warp_bilinear` clamps the fractions where JAX's exact gather does
-    not; the two differ only where `inside` is false, and there
-    `_assemble_m` discards the warped value."""
+
+def _update_from_source(r0: torch.Tensor, src: torch.Tensor, flow: torch.Tensor, mode: str) -> torch.Tensor:
+    """update_matrices on src = warp_source(r1, mode)."""
     h, w = r0.shape[-2:]
     dx = flow[..., 0]
     dy = flow[..., 1]
@@ -160,8 +172,40 @@ def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor) -> t
     x1 = torch.floor(fx)
     y1 = torch.floor(fy)
     inside = (x1 >= 0) & (x1 < w - 1) & (y1 >= 0) & (y1 < h - 1)
-    w2 = warp_bilinear(r1, fx, fy)
+    w2 = warp_bilinear(src, fx, fy, "slab" if mode in _SLAB_MODES else "gather")
     return _assemble_m(r0, w2, inside, dx, dy, h, w)
+
+
+def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor, mode: str = "exact") -> torch.Tensor:
+    """The 5-channel normal-equation field M (..., 5, H, W) from both
+    frames' coefficients (..., 5, H, W) and the current flow (..., H, W, 2)
+    (OpenCV FarnebackUpdateMatrices; JAX update_matrices).
+
+    mode picks the coefficient warp: "exact" and "packed" (on
+    warp_source's rounded planes) sample in `warp_bilinear`'s gather
+    geometry, "pallas" and "pallas_bf16" (on a bf16 source) in its slab
+    geometry, the TPU kernel's function. The warp clamps the fractions
+    where JAX's exact gather does not; the two differ only where `inside`
+    is false, and there `_assemble_m` discards the warped value. JAX falls
+    back to its exact gather where the slab does not fit the plane (H or
+    W < 2, warp_pallas.py::supports); both geometries here need H, W >= 2
+    and raise on such a plane, so there is nothing to fall back to."""
+    return _update_from_source(r0, warp_source(r1, mode), flow, mode)
+
+
+def update_matrices_prewarped(r0: torch.Tensor, r1w: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """update_matrices when r1w (..., 5, H, W) is already displaced by the
+    current flow: the "image" warp mode warps the smoothed frame and
+    re-expands it (JAX update_matrices_prewarped). `inside` is tested on
+    the unfloored coordinates, as JAX does; the assembly is the same."""
+    h, w = r0.shape[-2:]
+    dx = flow[..., 0]
+    dy = flow[..., 1]
+    xs, ys = _pixel_coords(h, w, flow.device)
+    fx = xs + dx
+    fy = ys + dy
+    inside = (fx >= 0) & (fx < w - 1) & (fy >= 0) & (fy < h - 1)
+    return _assemble_m(r0, r1w, inside, dx, dy, h, w)
 
 
 def _assemble_m(r0, w2, inside, dx, dy, h, w) -> torch.Tensor:
@@ -199,11 +243,32 @@ def _assemble_m(r0, w2, inside, dx, dy, h, w) -> torch.Tensor:
     )
 
 
-def update_flow_blur(m: torch.Tensor, win_size: int) -> torch.Tensor:
+def update_flow_blur(m: torch.Tensor, win_size: int, method: str = "doubling") -> torch.Tensor:
     """Flow (..., H, W, 2) from box-averaged M (OpenCV
-    FarnebackUpdateFlow_blur: window sums in the doubling order scaled by
-    1/win^2, then the damped 2x2 solve)."""
-    ms = box_sum(m, win_size, mode="edge")
+    FarnebackUpdateFlow_blur: window sums scaled by 1/win^2, then the
+    damped 2x2 solve).
+
+    method="doubling": ops/image.box_sum (the JAX package's summation
+    order; the exact path). method="cumsum" (the pallas modes): an
+    integral image, the edge-padded M (pad r+1 before, r after, r =
+    win//2) summed by two torch.cumsum (rows, then columns) and two
+    subtractions. Its running sums round differently per device (a
+    sequential float64 accumulation on the CPU, a parallel float32 scan on
+    CUDA, a windowed reduction in XLA), so it matches JAX within a
+    tolerance, not bit for bit. Only odd windows fit the pad."""
+    if method == "cumsum":
+        if win_size % 2 != 1:
+            raise ValueError(f"cumsum box requires odd win_size, got {win_size}")
+        r = win_size // 2
+        p = pad_axis(pad_axis(m, -2, r + 1, r, "edge"), -1, r + 1, r, "edge")
+        c = torch.cumsum(p, dim=-2)
+        rows = c[..., win_size:, :] - c[..., :-win_size, :]
+        c2 = torch.cumsum(rows, dim=-1)
+        ms = c2[..., win_size:] - c2[..., :-win_size]
+    elif method == "doubling":
+        ms = box_sum(m, win_size, mode="edge")
+    else:
+        raise ValueError(f"unknown box method {method!r}")
     return _cramer_solve(ms * (1.0 / (win_size * win_size)))
 
 
@@ -247,21 +312,27 @@ def _level_shapes(h: int, w: int, params: FarnebackParams):
     return out
 
 
+def _level_images(img: torch.Tensor, params: FarnebackParams) -> list[torch.Tensor]:
+    """The blurred, resized frame (..., Hk, Wk) float32 of each level,
+    coarse -> fine."""
+    img = img.to(torch.float32)
+    h, w = img.shape[-2:]
+    out = []
+    for hk, wk, sigma, smooth_sz in _level_shapes(h, w, params):
+        smoothed = gaussian_blur(img, smooth_sz, sigma)
+        if (hk, wk) != (h, w):
+            smoothed = resize_bilinear(smoothed, hk, wk)
+        out.append(smoothed)
+    return out
+
+
 def prepare_frame(img: torch.Tensor, params: FarnebackParams = FarnebackParams()) -> tuple[torch.Tensor, ...]:
     """Per-level polynomial-expansion pyramid of one frame (..., H, W),
     coarse -> fine: a tuple of (..., 5, Hk, Wk). In a clip each frame is
     the second frame of one pair and the first of the next, so it is
     prepared once."""
-    check_warp_mode(params)
-    img = img.to(torch.float32)
-    h, w = img.shape[-2:]
-    rs = []
-    for hk, wk, sigma, smooth_sz in _level_shapes(h, w, params):
-        smoothed = gaussian_blur(img, smooth_sz, sigma)
-        if (hk, wk) != (h, w):
-            smoothed = resize_bilinear(smoothed, hk, wk)
-        rs.append(poly_exp(smoothed, params.poly_n, params.poly_sigma))
-    return tuple(rs)
+    resolve_mode(params)
+    return tuple(poly_exp(s, params.poly_n, params.poly_sigma) for s in _level_images(img, params))
 
 
 def _init_top_flow(flow0: torch.Tensor, hk: int, wk: int, scale: float) -> torch.Tensor:
@@ -273,10 +344,22 @@ def _init_top_flow(flow0: torch.Tensor, hk: int, wk: int, scale: float) -> torch
     return f.movedim(-3, -1) * scale
 
 
+def _level_flow(flow, flow0, lead: tuple, hk: int, wk: int, params: FarnebackParams, device) -> torch.Tensor:
+    """The flow (*lead, Hk, Wk, 2) a level starts from: the coarser
+    level's, upscaled; at the top level flow0's seed, or zero."""
+    if flow is not None:
+        return resize_bilinear(flow.movedim(-1, -3), hk, wk).movedim(-3, -1) * (1.0 / params.pyr_scale)
+    if flow0 is not None:
+        return _init_top_flow(flow0, hk, wk, params.pyr_scale**params.levels)
+    return torch.zeros((*lead, hk, wk, 2), dtype=torch.float32, device=device)
+
+
 def _solve_flow(m: torch.Tensor, params: FarnebackParams) -> torch.Tensor:
     if params.gaussian_win:
         return update_flow_gaussian(m, params.win_size)
-    return update_flow_blur(m, params.win_size)
+    # the pallas modes take the integral-image box, as on the TPU
+    method = "cumsum" if params.warp_mode in _SLAB_MODES else "doubling"
+    return update_flow_blur(m, params.win_size, method)
 
 
 def farneback_prepared(
@@ -285,23 +368,25 @@ def farneback_prepared(
     params: FarnebackParams = FarnebackParams(),
     flow0: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """farneback() on prepare_frame() pyramids; flow (..., H, W, 2)."""
-    check_warp_mode(params)
+    """farneback() on prepare_frame() pyramids; flow (..., H, W, 2). The
+    coefficient warp modes only: "image" and "hybrid" re-expand the frame
+    inside the iteration and raise ValueError here (JAX asserts)."""
+    params = resolve_mode(params)
+    if params.warp_mode not in COEF_MODES:
+        raise ValueError(
+            f"farneback_prepared runs the coefficient warp modes {COEF_MODES}, not "
+            f"{params.warp_mode!r}, which re-expands the frame: call farneback"
+        )
     flow = None
     for r0, r1 in zip(rs_prev, rs_next):
         hk, wk = r0.shape[-2:]
-        if flow is None:
-            if flow0 is not None:
-                flow = _init_top_flow(flow0, hk, wk, params.pyr_scale**params.levels)
-            else:
-                flow = torch.zeros((*r0.shape[:-3], hk, wk, 2), dtype=torch.float32, device=r0.device)
-        else:
-            flow = resize_bilinear(flow.movedim(-1, -3), hk, wk).movedim(-3, -1) * (1.0 / params.pyr_scale)
-        m = update_matrices(r0, r1, flow)
+        flow = _level_flow(flow, flow0, r0.shape[:-3], hk, wk, params, r0.device)
+        src = warp_source(r1, params.warp_mode)
+        m = _update_from_source(r0, src, flow, params.warp_mode)
         for i in range(params.iterations):
             flow = _solve_flow(m, params)
             if i < params.iterations - 1:
-                m = update_matrices(r0, r1, flow)
+                m = _update_from_source(r0, src, flow, params.warp_mode)
     return flow
 
 
@@ -312,7 +397,39 @@ def farneback(
     flow0: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Dense flow (..., H, W, 2) from prev to nxt grayscale frames
-    (..., H, W) in [0, 255]. cv2.calcOpticalFlowFarneback parity; flags
-    map onto params.gaussian_win (OPTFLOW_FARNEBACK_GAUSSIAN) and flow0
-    (OPTFLOW_USE_INITIAL_FLOW: pass the previous flow, (..., H, W, 2))."""
-    return farneback_prepared(prepare_frame(prev, params), prepare_frame(nxt, params), params, flow0)
+    (..., H, W) in [0, 255], in every warp mode. cv2.calcOpticalFlowFarneback
+    parity; flags map onto params.gaussian_win (OPTFLOW_FARNEBACK_GAUSSIAN)
+    and flow0 (OPTFLOW_USE_INITIAL_FLOW: pass the previous flow,
+    (..., H, W, 2)).
+
+    The coefficient modes run farneback_prepared on both frames' pyramids.
+    "image" warps the level's smoothed second frame by the flow
+    (ops/warp.py::warp_image) and re-expands it for every matrix update;
+    "hybrid" does so for the early updates and takes the exact coefficient
+    warp for each level's last one."""
+    params = resolve_mode(params)
+    if params.warp_mode in COEF_MODES:
+        return farneback_prepared(prepare_frame(prev, params), prepare_frame(nxt, params), params, flow0)
+    n, sigma = params.poly_n, params.poly_sigma
+    flow = None
+    for img0, img1 in zip(_level_images(prev, params), _level_images(nxt, params)):
+        hk, wk = img0.shape[-2:]
+        flow = _level_flow(flow, flow0, img0.shape[:-2], hk, wk, params, img0.device)
+        r0 = poly_exp(img0, n, sigma)
+
+        def update_image(fl, r0=r0, img1=img1):
+            return update_matrices_prewarped(r0, poly_exp(warp_image(img1, fl), n, sigma), fl)
+
+        if params.warp_mode == "hybrid":
+            r1 = poly_exp(img1, n, sigma)
+
+            def update_last(fl, r0=r0, r1=r1):
+                return update_matrices(r0, r1, fl, "exact")
+        else:
+            update_last = update_image
+        m = update_image(flow) if params.iterations > 1 else update_last(flow)
+        for i in range(params.iterations):
+            flow = _solve_flow(m, params)
+            if i < params.iterations - 1:
+                m = update_last(flow) if i == params.iterations - 2 else update_image(flow)
+    return flow

@@ -202,3 +202,9 @@ def resize_area(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         x = torch.einsum("oh,...hw->...ow", wy, img.double())
         return torch.einsum("...hw,ow->...ho", x, wx).to(img.dtype)
     return resize_bilinear(img, out_h, out_w)
+
+
+def threshold_binary(img: torch.Tensor, thresh: float, maxval: float = 255.0) -> torch.Tensor:
+    """cv2.threshold(..., THRESH_BINARY) parity: img > thresh -> maxval
+    else 0, in img's dtype."""
+    return torch.where(img > thresh, torch.full_like(img, maxval), torch.zeros_like(img))

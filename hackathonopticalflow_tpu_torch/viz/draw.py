@@ -46,15 +46,39 @@ def line(img: np.ndarray, p0, p1, color, thickness: int = 1) -> np.ndarray:
     return img
 
 
+def _polylines_np(img: np.ndarray, lines_arr, color, thickness: int) -> None:
+    """_line_np over every segment of every polyline at once: the same
+    np.linspace points (k * (delta / n) + start, the last point the end
+    itself), rounded half to even, so the same pixels."""
+    segs = [np.asarray(l) for l in lines_arr if len(l) > 1]
+    if not segs:
+        return
+    p0 = np.round(np.concatenate([l[:-1] for l in segs])).astype(np.int64)
+    p1 = np.round(np.concatenate([l[1:] for l in segs])).astype(np.int64)
+    n = np.maximum(np.abs(p1 - p0).max(axis=1), 1)
+    seg = np.repeat(np.arange(len(n)), n + 1)
+    k = np.arange(seg.size) - np.repeat(np.cumsum(n + 1) - (n + 1), n + 1)
+    last = k == n[seg]
+
+    def points(a0, a1):
+        v = k * ((a1 - a0) / n)[seg] + a0[seg]
+        return np.where(last, a1[seg], v).round().astype(int)
+
+    xs, ys = points(p0[:, 0], p1[:, 0]), points(p0[:, 1], p1[:, 1])
+    h, w = img.shape[:2]
+    r = thickness // 2
+    for dx in range(-r, r + 1):
+        for dy in range(-r, r + 1):
+            ok = (xs + dx >= 0) & (xs + dx < w) & (ys + dy >= 0) & (ys + dy < h)
+            img[ys[ok] + dy, xs[ok] + dx] = color
+
+
 def polylines(img: np.ndarray, lines_arr, color, thickness: int = 1) -> np.ndarray:
     """lines_arr: iterable of (K, 2) int arrays (open polylines)."""
     if HAVE_CV2:
         cv2.polylines(img, [np.int32(l) for l in lines_arr], False, color, thickness)
         return img
-    for l in lines_arr:
-        l = np.asarray(l)
-        for i in range(len(l) - 1):
-            _line_np(img, l[i], l[i + 1], color, thickness)
+    _polylines_np(img, lines_arr, color, thickness)
     return img
 
 

@@ -6,12 +6,14 @@ one CUDA GPU.
 Run from the repository root:
 
     python3 profile_torch_scan.py [--path sparse|dense|tracker|app|ego] [--pairs 8] [--out PATH]
+        [--warp-mode auto|exact|packed|pallas|pallas_bf16|image|hybrid]
 
 Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip:
 `lk_grid_flow_video` at the production params (--path sparse, the
-default), `farneback_flow_video` at the reference FarnebackParams (--path
-dense), `track_video` at TrackerParams() after a seeding step on the
-first frame (--path tracker; a step per pair) or the pathfinder app's
+default), `farneback_flow_video` at the reference FarnebackParams in
+--warp-mode (--path dense; "image" and "hybrid" pair by pair),
+`track_video` at TrackerParams() after a seeding step on the first frame
+(--path tracker; a step per pair) or the pathfinder app's
 `run_batched` at the production params, chunks of APP_CHUNK pairs, render
 off, its frames read from host memory (--path app; host API calls are
 also given per chunk) or ego_motion_track's geometry at OdometryConfig()
@@ -128,19 +130,29 @@ def sparse_setup(dev, pairs: int):
     return scan, stages, "1080p"
 
 
-def dense_setup(dev, pairs: int):
-    """The dense scan over `pairs` 720p pairs and its stage timer."""
-    params = FarnebackParams()
+def dense_setup(dev, pairs: int, warp_mode: str = "auto"):
+    """The dense scan over `pairs` 720p pairs in `warp_mode` and its stage
+    timer ("image" and "hybrid", which the clip scan refuses, run
+    farneback_flow pair by pair; their stages are prepare_frame and
+    farneback alone)."""
+    params = FarnebackParams(warp_mode=warp_mode)
+    mode = fb.resolve_mode(params).warp_mode
+    coef = mode in fb.COEF_MODES
     clip = make_clip(dev, DENSE_H, DENSE_W, pairs + 1, DENSE_CELL)
 
     def scan():
-        return dense.farneback_flow_video(clip, params, device=dev)
+        if coef:
+            return dense.farneback_flow_video(clip, params, device=dev)
+        return [dense.farneback_flow(clip[t], clip[t + 1], params, device=dev) for t in range(pairs)]
 
     def stages():
         """One pair; each level at the flow the scan reaches there."""
+        out = {"prepare_frame": cuda_ms(lambda: fb.prepare_frame(clip[1], params), 10)}
+        if not coef:
+            out["farneback"] = cuda_ms(lambda: fb.farneback(clip[0], clip[1], params), 10)
+            return out
         rs0 = fb.prepare_frame(clip[0], params)
         rs1 = fb.prepare_frame(clip[1], params)
-        out = {"prepare_frame": cuda_ms(lambda: fb.prepare_frame(clip[1], params), 10)}
         flow = None
         for r0, r1 in zip(rs0, rs1):
             hk, wk = r0.shape[-2:]
@@ -148,8 +160,8 @@ def dense_setup(dev, pairs: int):
                 flow = torch.zeros((hk, wk, 2), dtype=torch.float32, device=dev)
             else:
                 flow = fb.resize_bilinear(flow.movedim(-1, -3), hk, wk).movedim(-3, -1) * 2.0
-            m = fb.update_matrices(r0, r1, flow)
-            out[f"update_matrices {hk}x{wk}"] = cuda_ms(lambda: fb.update_matrices(r0, r1, flow), 10)
+            m = fb.update_matrices(r0, r1, flow, mode)
+            out[f"update_matrices {hk}x{wk}"] = cuda_ms(lambda: fb.update_matrices(r0, r1, flow, mode), 10)
             out[f"solve {hk}x{wk}"] = cuda_ms(lambda: fb._solve_flow(m, params), 10)
             flow = fb._solve_flow(m, params)
         out["farneback_prepared"] = cuda_ms(lambda: fb.farneback_prepared(rs0, rs1, params), 10)
@@ -259,9 +271,12 @@ def main() -> int:
     ap.add_argument("--path", choices=tuple(SETUPS), default="sparse")
     ap.add_argument("--pairs", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--warp-mode", default="auto", help="FarnebackParams.warp_mode of --path dense")
     args = ap.parse_args()
     if args.out is None:
         suffix = "" if args.path == "sparse" else f"_{args.path}"
+        if args.path == "dense" and args.warp_mode != "auto":
+            suffix += f"_{args.warp_mode}"
         args.out = Path(f"build/profile_torch_scan{suffix}.txt")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_scan: needs a CUDA GPU")
@@ -271,7 +286,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    scan, stages_fn, size = SETUPS[args.path](dev, args.pairs)
+    extra = {"warp_mode": args.warp_mode} if args.path == "dense" else {}
+    scan, stages_fn, size = SETUPS[args.path](dev, args.pairs, **extra)
 
     scan()  # builds the kernel, warms the caching allocator
     walls = []
@@ -327,7 +343,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     print(f"profiler tables: {args.out}")
     print(json.dumps({
-        "gpu": smi, "path": args.path, "pairs": args.pairs, "wall_ms": wall_ms,
+        "gpu": smi, "path": args.path, **extra, "pairs": args.pairs, "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms,
         "launches_per_pair": launches / args.pairs, "api_calls": dict(api),
         "device_copies": dict(copies),

@@ -115,3 +115,16 @@ def test_draw_hsv_identical():
     rng = np.random.RandomState(9)
     flow = rng.uniform(-40, 40, (40, 60, 2)).astype(np.float32)
     assert np.array_equal(tlayers.draw_hsv(flow), jlayers.draw_hsv(flow))
+
+
+@pytest.mark.parametrize("thickness", [1, 2, 3])
+def test_polylines_identical(have_cv2, thickness):
+    """Polylines running off the frame, one-point and two-point lines,
+    long contour-like chains: the port's one-pass numpy rasterizer draws
+    the pixels of JAX's segment-by-segment loop."""
+    rng = np.random.RandomState(thickness)
+    lines = [rng.randint(-20, 140, (k, 2)) for k in (1, 2, 5, 40)]
+    lines.append(np.cumsum(rng.randint(-1, 2, (300, 2)), axis=0) + [60, 40])
+    got = tdraw.polylines(np.zeros((90, 120, 3), np.uint8), lines, (10, 200, 30), thickness)
+    want = jdraw.polylines(np.zeros((90, 120, 3), np.uint8), lines, (10, 200, 30), thickness)
+    assert got.any() and np.array_equal(got, want)

@@ -12,7 +12,8 @@ from hackathonopticalflow_tpu_torch import core as tcore
 
 
 # fields that only pick a TPU implementation of the ported computation, or
-# serve paths the port does not have (warp_group_rows: Pallas tile geometry)
+# serve paths the port does not have (warp_group_rows: the Pallas warp's
+# row-group gating, which never changes its result)
 JAX_ONLY = {
     "LKParams": {"use_pallas", "pallas_block", "early_exit", "lanes_packed",
                  "carve_dma"},

@@ -102,6 +102,47 @@ def test_warp_bilinear_kernel_matches_plain(cuda_device, hw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("spread", [False, True], ids=["in_margin", "spread"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw", [(90, 160), (180, 320), (360, 640), (720, 1280), (20, 200)])
+def test_warp_bilinear_slab_kernel_matches_plain(cuda_device, hw, dtype, spread):
+    """The slab geometry at the 720p dense path's level sizes and a ragged
+    shape, float32 and bf16 source, with flow inside the TPU kernel's
+    margins and flow whose spread clamps samples: identical over every
+    pixel."""
+    h, w = hw
+    rng = np.random.RandomState(h + spread)
+    src = torch.from_numpy(rng.randn(2, 5, h, w).astype(np.float32) * 100).to(cuda_device).to(dtype)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    amp = 150.0 if spread else 3.0
+    fx = xx + amp * np.sin(yy / 3.0 + xx / 17.0) + rng.uniform(-2, 2, (2, h, w))
+    fy = yy + amp * np.cos(xx / 5.0) + rng.uniform(-2, 2, (2, h, w))
+    fx, fy = (torch.from_numpy(f.astype(np.float32)).to(cuda_device) for f in (fx, fy))
+    before = warp_bilinear.launches
+    out = warp_bilinear(src, fx, fy, "slab")
+    torch.cuda.synchronize()
+    assert warp_bilinear.launches == before + 1
+    assert torch.equal(out, warp_bilinear_reference(src, fx, fy, "slab"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pallas", "pallas_bf16", "packed"])
+def test_farneback_video_modes_kernel_path_matches_plain(cuda_device, mode):
+    """2 pairs of the dense scan in the coefficient modes through the
+    kernel equal the plain path's (the cumsum box is the same torch call
+    on both paths)."""
+    params = FarnebackParams(warp_mode=mode)
+    clip = torch.from_numpy(np.stack(_frames(3, 144, 256, 1, 1))).to(cuda_device)
+    before = warp_bilinear.launches
+    got = tdense.farneback_flow_video(clip, params, device=cuda_device)
+    torch.cuda.synchronize()
+    assert warp_bilinear.launches - before == 2 * params.iterations * (params.levels + 1)
+    with mock.patch.object(tfb, "warp_bilinear", warp_bilinear_reference):
+        want = tdense.farneback_flow_video(clip, params, device=cuda_device)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_farneback_video_kernel_path_matches_plain(cuda_device):
     """2 pairs of the dense scan through the kernel equal the plain path's:
     the rest of the path is the same ops on the same inputs."""

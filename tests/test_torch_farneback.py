@@ -5,7 +5,8 @@ Inputs are smooth textures (numpy seed) zoomed about the centre and
 drifting, at 144x256: noise frames make the damped 2x2 solve amplify
 float32 reassociation (JAX's own scan-vs-pairwise test needs 2e-3 px on
 noise). The JAX reference is warp_mode="exact" on the CPU; its Pallas warp
-runs in interpret mode. JAX calls are jitted and shared per module."""
+runs in interpret mode. JAX calls are jitted and shared per module. The
+other warp modes: tests/test_torch_farneback_modes.py."""
 
 import dataclasses
 import importlib
@@ -363,13 +364,9 @@ def test_radial_normalize_dense_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("mode", ["packed", "pallas", "pallas_bf16", "image", "hybrid"])
-def test_unported_warp_modes_raise(clip, mode):
-    params = tcore.FarnebackParams(warp_mode=mode)
+def test_unknown_warp_mode_raises(clip):
     frames = torch.from_numpy(clip[:2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdense.farneback_flow(frames[0], frames[1], params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdense.farneback_flow_video(frames, params, device="cpu")
     with pytest.raises(ValueError, match="unknown warp_mode"):
         tfb.farneback(frames[0], frames[1], tcore.FarnebackParams(warp_mode="fast"))
+    with pytest.raises(ValueError, match="unknown warp_mode"):
+        tdense.farneback_flow_video(frames, tcore.FarnebackParams(warp_mode="fast"), device="cpu")

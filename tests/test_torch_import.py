@@ -24,7 +24,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.features",
         "ops.patch_bilinear", "flow.tracker", "ops.gather_rects", "apps.pathfinder", "nav.danger",
         "ops.color", "io.prefetch", "io.native_lib", "viz.layers", "utils.checkpoint", "nav.camera",
-        "nav.foe", "nav.metrics", "nav.pose", "nav.ba", "nav.odometry", "apps.tracker_app"} <= names, names
+        "nav.foe", "nav.metrics", "nav.pose", "nav.ba", "nav.odometry", "apps.tracker_app",
+        "apps.dense_viewer"} <= names, names
 from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
