@@ -3,8 +3,9 @@
 configurations: the blocked grid kernel, the lanes kernel without a
 rescue, the exact path), its dense Farneback path (in every warp mode),
 its Shi-Tomasi + forward-backward LK tracker, its pathfinder app, its
-ego-motion (tracker -> keyframe windows -> BA), its tracker app and its
-dense viewer once on one GPU.
+ego-motion (tracker -> keyframe windows -> BA), its tracker app, its
+dense viewer and its batch runner (four streams, one stream-batched step
+per frame index) once on one GPU.
 
 Run from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
@@ -113,7 +114,22 @@ Phases, in order; any failure exits non-zero:
     clip's first DENSE_VIEWER_PAIRS pairs through ClipReader, headless,
     with the dense, HSV and contour layers on: each pair's flow equal to farneback_flow's and
     its sparse result to lk_grid_flow's, frames and contours drawn; the
-    app's fps beside the scans'.
+    app's fps beside the scans';
+21. the batch runner (apps/batch_runner.py) at the production params on
+    four 1080p zoom streams (seeds 0-3, zoom 1.003-1.006 per frame, 49,
+    41, 33 and 25 frames: 144 pairs, three streams ending early) read
+    through ClipReader: run_batch's per-stream danger counts equal to each
+    stream's own lk_grid_flow_video `good` sums, the ended streams masked,
+    lk_level 3 times a step whatever the number of streams; a checkpointed
+    run and its resume equal to the full run; run_batch_staged's counts
+    equal; at LKParams() (the exact path) over 8 steps, patch_bilinear 4
+    and lk_level 3 times a step and the counts each stream's exact scan's;
+    lk_level at each production level and patch_bilinear at the exact
+    path's template shapes with a stream axis of 4, identical to their
+    plain versions, and at B = 1 to the unbatched call, with their device
+    times at B = 1 and 4 beside the bound; aggregate pairs/s of both runs
+    beside phase 5's single-stream scan, kernel launches and syncs per
+    step; entry() once at 720p, finite.
 
 Each kernel's record carries its device time per shape of the main paths
 (shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
@@ -212,11 +228,12 @@ def sample_texture(lat: torch.Tensor, x: torch.Tensor, y: torch.Tensor, cell: in
     )
 
 
-def make_clip(device, h: int = H, w: int = W, n: int = N_FRAMES, cell: int = 6) -> torch.Tensor:
-    """(n, h, w) uint8: frame t is the texture (lattice spacing `cell` px)
-    zoomed by ZOOM**t about the centre (content expands outwards, as in
-    forward flight)."""
-    gen = torch.Generator().manual_seed(SEED)
+def make_clip(device, h: int = H, w: int = W, n: int = N_FRAMES, cell: int = 6, seed: int = SEED,
+              zoom: float = ZOOM) -> torch.Tensor:
+    """(n, h, w) uint8: frame t is the texture (lattice spacing `cell` px,
+    drawn from `seed`) zoomed by zoom**t about the centre (content expands
+    outwards, as in forward flight)."""
+    gen = torch.Generator().manual_seed(seed)
     lat = smooth_texture(gen, device, h, w, cell)
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
     yy, xx = torch.meshgrid(
@@ -226,7 +243,7 @@ def make_clip(device, h: int = H, w: int = W, n: int = N_FRAMES, cell: int = 6) 
     )
     frames = []
     for t in range(n):
-        s = ZOOM**t
+        s = zoom**t
         img = sample_texture(lat, cx + (xx - cx) / s, cy + (yy - cy) / s, cell)
         frames.append(torch.floor(img + 0.5).to(torch.uint8))
     return torch.stack(frames)
@@ -1331,11 +1348,11 @@ def app_phase(dev, clip, scan_fps: float) -> dict:
 GEOMETRY_REPS = 3  # geometry timings, best of
 
 
-def sync_calls(fn) -> dict:
-    """The host's waits on the device during fn(), from torch.profiler:
-    counts of the CUDA API's synchronize calls (a device-to-host copy into
-    pageable memory, and a solver's status check, are a stream
-    synchronize each)."""
+def api_calls(fn) -> tuple[int, dict]:
+    """The host's kernel launches and waits on the device during fn(), from
+    torch.profiler: (count of the CUDA API's launch calls, counts of its
+    synchronize calls by name; a device-to-host copy into pageable memory,
+    and a solver's status check, are a stream synchronize each)."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -1343,8 +1360,14 @@ def sync_calls(fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-    return dict(collections.Counter(e.name for e in prof.events()
-                                    if e.name.startswith("cuda") and "Synchronize" in e.name))
+    names = collections.Counter(e.name for e in prof.events() if e.name.startswith("cuda"))
+    launches = sum(v for k, v in names.items() if k.startswith("cudaLaunch"))
+    return launches, {k: v for k, v in names.items() if "Synchronize" in k}
+
+
+def sync_calls(fn) -> dict:
+    """The host's waits on the device during fn() (api_calls)."""
+    return api_calls(fn)[1]
 
 
 def ego_phase(dev, clip, history) -> dict:
@@ -1729,6 +1752,281 @@ def dense_viewer_phase(dev, clip, scan_fps: dict) -> dict:
     return {"dense_viewer_fps": stats["fps"], "dense_viewer_launches": launches}
 
 
+BATCH_LENGTHS = (49, 41, 33, 25)  # frames of phase 21's four streams: 144 pairs, three end early
+BATCH_ZOOMS = (1.003, 1.004, 1.005, 1.006)  # their zoom per frame
+BATCH_EXACT_FRAMES = 9  # frames per stream of the exact-path run (8 steps)
+BATCH_PROFILE_FRAMES = 13  # frames per stream of the profiled run (12 steps)
+BATCH_RESUME_FRAMES = 25  # the checkpointed run stops after 24 steps
+
+
+def batch_streams(dev) -> list[np.ndarray]:
+    """Phase 21's four 1080p streams on the host, (T, H, W) uint8 each:
+    make_clip with seeds 0-3, zooms BATCH_ZOOMS and lengths
+    BATCH_LENGTHS."""
+    return [make_clip(dev, H, W, n, seed=i, zoom=z).cpu().numpy()
+            for i, (n, z) in enumerate(zip(BATCH_LENGTHS, BATCH_ZOOMS))]
+
+
+def batched_kernel_phase(dev, streams) -> dict:
+    """Phase 21 kernels: lk_level at each production level and
+    patch_bilinear at the exact path's template shapes, with a stream axis
+    of the four streams' first pairs: identical to their plain versions at
+    B = 4; at B = 1 identical to the unbatched call. Device times (graph
+    replay) at B = 1 and B = 4 beside the bound, and F.grid_sample's batched
+    time for patch_bilinear."""
+    from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
+
+    params = LKParams(grid_step=30, compute_err=False)
+    pts_np = measurement_grid(H, W, params.grid_step)
+    pts = torch.from_numpy(pts_np).to(dev)
+    n = pts.shape[0]
+    grid_xy = (np.unique(pts_np[:, 0]).astype(int), np.unique(pts_np[:, 1]).astype(int))
+    pair = torch.from_numpy(np.stack([f[:2] for f in streams], 1)).to(dev)  # (2, B, H, W)
+    b = pair.shape[1]
+    lk = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "max_abs_err": 0.0}
+    work = {1: [0.0, 0.0, 0.0], b: [0.0, 0.0, 0.0]}
+    for nb in (1, b):
+        cur, prev = lk_mod.prepare_frame(pair[1, :nb], params), lk_mod.prepare_frame(pair[0, :nb], params)
+        one = (lk_mod.prepare_frame(pair[1, 0], params), lk_mod.prepare_frame(pair[0, 0], params))
+        center = pts.repeat(nb, 1) * (1.0 / (1 << params.max_level))
+        status = torch.ones(nb * n, dtype=torch.bool, device=dev)
+        for level in range(params.max_level, -1, -1):
+            if level != params.max_level:
+                center = center * 2.0
+            args, statics = lk_mod.level_inputs(cur, prev, grid_xy, center, level, params)
+            lk_level.launches = 0
+            tl_k, st_k = lk_level(*args, status, **statics)
+            torch.cuda.synchronize()
+            launches = lk_level.launches
+            stats = {}
+            tl_p, st_p = lk_level_reference(*args, status, **statics, stats=stats)
+            same = bool(torch.equal(tl_k, tl_p)) and bool(torch.equal(st_k, st_p))
+            lk["max_abs_err"] = max(lk["max_abs_err"], float((tl_k - tl_p).abs().max()))
+            if nb == 1:
+                a1, s1 = lk_mod.level_inputs(*one, grid_xy, center, level, params)
+                tl1, st1 = lk_level(*a1, status, **s1)
+                same = same and bool(torch.equal(tl1, tl_k)) and bool(torch.equal(st1, st_k))
+            key = f"B={nb} L{level}"
+            level_work = lk_level_work(args, statics, stats)
+            work[nb] = [x + y for x, y in zip(work[nb], level_work)]
+            lk["ms"][key] = graph_ms(lambda: lk_level(*args, status, **statics), 20)
+            lk["plain_ms"][key] = graph_ms(lambda: lk_level_reference(*args, status, **statics), 2)
+            lk["bound_ms"][key], _ = bound(*level_work)
+            log(f"lk_level stream-batched {key} ({nb * n} points, planes {tuple(args[1].shape)}): launches "
+                f"{launches}, identical to the plain version{' and to the unbatched call' if nb == 1 else ''} "
+                f"{same}; device time (graph replay) {lk['ms'][key]:.4f} ms, plain {lk['plain_ms'][key]:.4f} ms, "
+                "bound %.4f ms (%s)" % bound(*level_work))
+            if launches != 1 or not same:
+                raise SystemExit(f"lk_level stream-batched {key}: kernel disagrees")
+            center, status = tl_p + lk_mod._halfwin(params, dev), st_p
+
+    exact = LKParams(compute_err=False)
+    win_w, win_h = exact.win_size
+    pad = lk_mod._frame_pad(exact)
+    halfwin = lk_mod._halfwin(exact, dev)
+    ii = torch.arange(win_h, dtype=torch.float32, device=dev)[None, :, None]
+    jj = torch.arange(win_w, dtype=torch.float32, device=dev)[None, None, :]
+    pb = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "library_ms": {}, "max_abs_err": 0.0}
+    pb_work = {1: [0.0, 0.0], b: [0.0, 0.0]}
+    for nb in (1, b):
+        cur = lk_mod.prepare_frame(pair[1, :nb], exact)
+        one = lk_mod.prepare_frame(pair[1, 0], exact)
+        for level in range(exact.max_level, -1, -1):
+            planes = torch.stack([cur.img_p[level], cur.dix_p[level], cur.diy_p[level]], dim=1)
+            tl = (pts * (1.0 / (1 << level)) - halfwin + pad).repeat(nb, 1).contiguous()
+            patch_bilinear.launches = 0
+            got = patch_bilinear(planes, tl, win_h, win_w, True)
+            torch.cuda.synchronize()
+            launches = patch_bilinear.launches
+            ref = patch_bilinear_reference(planes, tl, win_h, win_w, True)
+            same = bool(torch.equal(got, ref))
+            pb["max_abs_err"] = max(pb["max_abs_err"], float((got - ref).abs().max()))
+            if nb == 1:
+                planes1 = torch.stack([one.img_p[level], one.dix_p[level], one.diy_p[level]])
+                same = same and bool(torch.equal(patch_bilinear(planes1, tl, win_h, win_w, True), got))
+            key = f"B={nb} tmpl L{level}"
+            pb["ms"][key] = graph_ms(lambda: patch_bilinear(planes, tl, win_h, win_w, True), 20)
+            pb["plain_ms"][key] = graph_ms(lambda: patch_bilinear_reference(planes, tl, win_h, win_w, True), 3)
+            grid = torch.stack([(tl[:, 0, None, None] + jj).expand(-1, win_h, -1),
+                                (tl[:, 1, None, None] + ii).expand(-1, -1, win_w)], dim=-1)
+            hp, wp = planes.shape[-2:]
+            grid = grid * torch.tensor([2.0 / (wp - 1), 2.0 / (hp - 1)], device=dev) - 1.0
+            grid = grid.reshape(nb, -1, win_w, 2).contiguous()
+            pb["library_ms"][key] = graph_ms(lambda: torch.nn.functional.grid_sample(
+                planes, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
+            call_bytes = min(planes.numel(), tl.shape[0] * 3 * (win_h + 1) * (win_w + 1)) * 4 + tl.numel() * 4 \
+                + got.numel() * 4
+            call_ops = got.numel() * 11 + 12 * tl.shape[0]
+            pb_work[nb] = [pb_work[nb][0] + call_bytes, pb_work[nb][1] + call_ops]
+            pb["bound_ms"][key], _ = bound(call_bytes, call_ops)
+            log(f"patch_bilinear stream-batched {key} {tuple(got.shape)} of {tuple(planes.shape)}: launches "
+                f"{launches}, identical to the plain version{' and to the unbatched call' if nb == 1 else ''} "
+                f"{same}; device time (graph replay) {pb['ms'][key]:.4f} ms, plain {pb['plain_ms'][key]:.4f} ms, "
+                f"F.grid_sample {pb['library_ms'][key]:.4f} ms, bound %.4f ms (%s)" % bound(call_bytes, call_ops))
+            if launches != 1 or not same:
+                raise SystemExit(f"patch_bilinear stream-batched {key}: kernel disagrees")
+
+    def record(name, source, replaces, d, w, library):
+        keys = [k for k in d["ms"] if k.startswith(f"B={b} ")]
+        bound_ms, bound_by = bound(*w[b])
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
+            "max_abs_err": d["max_abs_err"], "ms": sum(d["ms"][k] for k in keys),
+            "plain_ms": sum(d["plain_ms"][k] for k in keys), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sum(d["library_ms"][k] for k in keys) if library else None,
+            "ms_b1": sum(v for k, v in d["ms"].items() if k.startswith("B=1 ")),
+            "bound_ms_b1": bound(*w[1])[0],
+            "shape_ms": d["ms"], "shape_bound_ms": d["bound_ms"],
+            **({"shape_library_ms": d["library_ms"]} if library else {}),
+        }
+
+    return {
+        "lk_level": record(f"lk_level stream-batched B={b}", "hackathonopticalflow_tpu_torch/csrc/lk_level.cu",
+                           "hackathonopticalflow_tpu/ops/lk_pallas3.py:82, "
+                           "hackathonopticalflow_tpu/ops/lk_pallas3.py:353, "
+                           "hackathonopticalflow_tpu/ops/carve_pallas.py:159", lk, work, False),
+        "patch_bilinear": record(f"patch_bilinear stream-batched B={b}",
+                                 "hackathonopticalflow_tpu_torch/csrc/patch_bilinear.cu",
+                                 "hackathonopticalflow_tpu/ops/carve_pallas.py:231", pb, pb_work, True),
+    }
+
+
+def batch_phase(dev, scan_fps: float) -> dict:
+    """Phase 21: the batch runner (apps/batch_runner.py) on four 1080p
+    streams of BATCH_LENGTHS frames read from host memory (ClipReader; three
+    end before the last), at the production params. run_batch: each
+    stream's danger counts equal its own lk_grid_flow_video scan's `good`
+    sums, the ended streams masked, lk_level 3 times a step for all four
+    streams; a checkpointed run and its resume equal the full run;
+    run_batch_staged gives the same counts. At LKParams() (the exact path)
+    over BATCH_EXACT_FRAMES frames a stream: patch_bilinear 4 and lk_level
+    3 times a step, the counts each stream's exact scan's. The
+    stream-batched kernels against their plain versions (batched_kernel_
+    phase). Aggregate pairs/s of both runs beside the single-stream scan's
+    (phase 5), and of run_batch with every stream alive (the first
+    BATCH_RESUME_FRAMES frames) beside one stream's scan of the same frames,
+    timed in turns; launches and syncs per step; entry() once at 720p."""
+    import os
+
+    from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch, run_batch_staged
+    from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
+    from hackathonopticalflow_tpu_torch.entry import entry
+    from hackathonopticalflow_tpu_torch.flow import lk_grid
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
+
+    params = LKParams(grid_step=30, compute_err=False)
+    streams = batch_streams(dev)
+    b = len(streams)
+    bgr = {f"stream{i}": ClipReader(f).bgr for i, f in enumerate(streams)}  # replicated once, off the clock
+    pts = torch.from_numpy(measurement_grid(H, W, params.grid_step)).to(dev)
+    log(f"batch streams: {b} x {H}p, frames {list(BATCH_LENGTHS)}, zoom {list(BATCH_ZOOMS)}/frame")
+
+    def cfg(lk=params, **kw):
+        return BatchRunnerConfig(videos=list(bgr), lk=lk, device=str(dev),
+                                 open_reader=lambda path: ClipReader(bgr[path]), **kw)
+
+    def own_scans(lk, frames=None):
+        return [lk_grid.lk_grid_flow_video(torch.from_numpy(f[:frames]).to(dev), pts, lk=lk, device=dev)
+                .good.sum(1).tolist() for f in streams]
+
+    want = own_scans(params)
+    lk_level.launches = patch_bilinear.launches = 0
+    full = run_batch(cfg())
+    torch.cuda.synchronize()
+    launches = lk_level.launches
+    steps = full["steps"]
+    counts = full["danger_counts"]
+    lengths = [len(c) for c in counts]
+    log(f"batch run_batch ({b} streams, {steps} steps, {full['total_frames']} pairs): lk_level launches "
+        f"{launches} ({3 * (steps + 1)} expected: 3 a step for all streams, a warm-up step included), "
+        f"patch_bilinear {patch_bilinear.launches}; pairs per stream {lengths} (ended streams masked); "
+        f"counts equal to each stream's own scan {counts == want}")
+    if (launches != 3 * (steps + 1) or steps != max(BATCH_LENGTHS) - 1 or counts != want
+            or lengths != [n - 1 for n in BATCH_LENGTHS]):
+        raise SystemExit("the batch runner disagrees with the streams' own scans")
+
+    ck = os.path.join("build", "chip_smoke_batch.ckpt.npz")
+    os.makedirs("build", exist_ok=True)
+    if os.path.exists(ck):
+        os.remove(ck)
+    every = (BATCH_RESUME_FRAMES - 1) // 2
+    part1 = run_batch(cfg(max_frames=BATCH_RESUME_FRAMES, checkpoint_path=ck, checkpoint_every=every))
+    part2 = run_batch(cfg(checkpoint_path=ck, checkpoint_every=every))
+    os.remove(ck)
+    resumed = [x + y for x, y in zip(part1["danger_counts"], part2["danger_counts"])]
+    log(f"batch checkpointed run: {part1['steps']} steps, resume from step {part2['first_step']}: "
+        f"{part2['steps']} steps; counts equal to the full run {resumed == counts}")
+    if resumed != counts or part2["first_step"] != BATCH_RESUME_FRAMES:
+        raise SystemExit("the resumed batch run disagrees with the full run")
+
+    staged = run_batch_staged(cfg(), reps=2)
+    log(f"batch run_batch_staged: counts equal to run_batch's {staged['danger_counts'] == counts}")
+    if staged["danger_counts"] != counts:
+        raise SystemExit("run_batch_staged disagrees with run_batch")
+
+    exact = LKParams()
+    want_exact = own_scans(exact, BATCH_EXACT_FRAMES)
+    lk_level.launches = patch_bilinear.launches = 0
+    ex = run_batch(cfg(lk=exact, max_frames=BATCH_EXACT_FRAMES))
+    torch.cuda.synchronize()
+    ex_launches = (lk_level.launches, patch_bilinear.launches)
+    log(f"batch run_batch at LKParams() ({ex['steps']} steps): lk_level launches {ex_launches[0]}, "
+        f"patch_bilinear {ex_launches[1]} (3 and 4 a step, a warm-up step included); counts equal to each "
+        f"stream's own exact scan {ex['danger_counts'] == want_exact}")
+    if ex_launches != (3 * (ex["steps"] + 1), 4 * (ex["steps"] + 1)) or ex["danger_counts"] != want_exact:
+        raise SystemExit("the batch runner on the exact path disagrees")
+
+    fps = max(run_batch(cfg())["aggregate_fps"] for _ in range(3))
+    staged_fps = staged["aggregate_fps"]
+    # every stream alive (their first BATCH_RESUME_FRAMES frames) against
+    # one stream's scan of the same frames, timed in turns (best of 3)
+    first = torch.from_numpy(streams[0][:BATCH_RESUME_FRAMES]).to(dev)
+    alive_fps = scan1_fps = 0.0
+    for _ in range(3):
+        alive_fps = max(alive_fps, run_batch(cfg(max_frames=BATCH_RESUME_FRAMES))["aggregate_fps"])
+        scan1_fps = max(scan1_fps, (BATCH_RESUME_FRAMES - 1) / host_seconds(
+            lambda: lk_grid.lk_grid_flow_video(first, pts, lk=params, device=dev)))
+    prof_steps = BATCH_PROFILE_FRAMES - 1
+    calls, syncs = api_calls(lambda: run_batch(cfg(max_frames=BATCH_PROFILE_FRAMES)))
+    per = prof_steps + 1  # the warm-up step included
+    log(f"batch run_batch {b} x {H}p: {fps:.2f} pairs/s aggregate (best of 3; {fps / b:.2f} steps/s), "
+        f"run_batch_staged {staged_fps:.2f} pairs/s (best of 2); single-stream scan (phase 5) {scan_fps:.2f} "
+        f"fps; batched / single {fps / scan_fps:.3f}")
+    log(f"batch run_batch with all {b} streams alive ({BATCH_RESUME_FRAMES - 1} steps): {alive_fps:.2f} pairs/s; "
+        f"one stream's scan of the same frames {scan1_fps:.2f} fps (in turns, best of 3); batched / single "
+        f"{alive_fps / scan1_fps:.3f}")
+    log(f"batch per step ({prof_steps} steps and a warm-up step, profiled): kernel launches {calls / per:.1f}, "
+        "syncs " + (", ".join(f"{k} {v / per:.2f}" for k, v in syncs.items()) or "none"))
+
+    kernels = batched_kernel_phase(dev, streams)
+    kernels["lk_level"]["launches"] = launches
+    kernels["lk_level"]["launches_by_path"] = {"batch_runner": launches, "batch_runner exact": ex_launches[0]}
+    kernels["patch_bilinear"]["launches"] = ex_launches[1]
+    kernels["patch_bilinear"]["launches_by_path"] = {"batch_runner exact": ex_launches[1]}
+
+    step, args = entry(device=dev)
+    out = step(*args)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+    log(f"entry() at 720p: {', '.join(f'{k} {tuple(v.shape)}' for k, v in out.items())}; finite {finite}")
+    if not finite or out["dense_flow"].shape != (720, 1280, 2):
+        raise SystemExit("entry() gave non-finite values")
+    return {
+        "kernels": kernels,
+        "batch_launches": (launches, ex_launches),
+        "batch_pairs_per_s": fps,
+        "batch_staged_pairs_per_s": staged_fps,
+        "batch_all_alive_pairs_per_s": alive_fps,
+        "batch_single_stream_scan_fps": scan1_fps,
+        "batch_launches_per_step": calls / per,
+        "batch_syncs_per_step": {k: v / per for k, v in syncs.items()},
+    }
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device check ----
@@ -1779,6 +2077,7 @@ def main() -> int:
     slab = slab_phase(dev, dense_clip)
     modes = dense_modes_phase(dev, dense_clip)
     viewer = dense_viewer_phase(dev, dense_clip, modes["fps"])
+    batch = batch_phase(dev, sparse["scan_fps"])
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
@@ -1806,6 +2105,10 @@ def main() -> int:
     pb["variants"] = variants["patch_bilinear"]
     (warp_viewer, lk["launches_by_path"]["dense_viewer"], pb["launches_by_path"]["dense_viewer"]) = viewer.pop(
         "dense_viewer_launches")
+    batch_kernels = batch.pop("kernels")
+    (lk["launches_by_path"]["batch_runner"], (lk["launches_by_path"]["batch_runner exact"],
+                                              pb["launches_by_path"]["batch_runner exact"])) = batch.pop(
+        "batch_launches")
     lk["launches"] = sum(lk["launches_by_path"].values())
     pb["launches"] = sum(pb["launches_by_path"].values())
     warp = dense.pop("kernel")
@@ -1815,9 +2118,10 @@ def main() -> int:
     for variant, mode in (("f32", "pallas"), ("bf16", "pallas_bf16")):
         slab[variant]["launches_by_path"] = {f"dense {mode}": modes["launches"][mode]}
         slab[variant]["launches"] = modes["launches"][mode]
-    record = {"kernels": [lk, warp, slab["f32"], slab["bf16"], pb, gather], **sparse, **dense, **track, **scans,
+    record = {"kernels": [lk, warp, slab["f32"], slab["bf16"], pb, gather, batch_kernels["lk_level"],
+                          batch_kernels["patch_bilinear"]], **sparse, **dense, **track, **scans,
               **app, **ego, **track_app, "dense_modes_fps": modes["fps"],
-              "dense_modes_median_epe_px": modes["median_epe_px"], **viewer}
+              "dense_modes_median_epe_px": modes["median_epe_px"], **viewer, **batch}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

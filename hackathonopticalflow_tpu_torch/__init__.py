@@ -28,9 +28,13 @@ flow      grid LK flow over a frame pair or a clip (the pathfinder's loop);
           forward-backward LK tracker over a pair or a clip. These entry
           points run on the GPU unless the caller passes device="cpu".
 apps      the pathfinder app and the tracker app (a pose per frame),
-          with checkpoint / resume; the dense viewer
-io, viz,  decode, gray conversion and prefetch; drawing; logging and
-utils     checkpoints (host side)
+          with checkpoint / resume; the dense viewer; the batch runner
+          (several streams, one stream-batched step per frame index)
+io, viz,  decode, gray conversion, prefetch and offline tools; drawing
+utils     and the metrics plotter; logging, timing and checkpoints (host
+          side)
+entry     one step of the flagship pipeline with example arguments (the
+          counterpart of the repository's __graft_entry__.py::entry)
 kernels   nvcc build + ctypes loader for csrc/*.cu
 convert   JAX-package state and configs (numpy-convertible) -> this
           package's tensors and configs

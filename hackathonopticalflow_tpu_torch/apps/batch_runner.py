@@ -1,0 +1,316 @@
+"""Multi-stream batched pipeline runner (port of
+hackathonopticalflow_tpu/apps/batch_runner.py; BASELINE.json config 4,
+"all repo flight videos processed concurrently").
+
+B videos decode in lockstep (one background prefetcher each), their frames
+stack into one (B, H, W) uint8 batch, and one stream-batched grid-LK step
+(`flow/lk_grid.py::lk_grid_flow_prepared`: LK -> radial normalize ->
+robust filter, the statistics per stream) runs all streams with one
+`lk_level` launch per level, as the JAX package's vmap of its Pallas
+kernels adds a batch grid axis. A stream whose decode ends is masked out
+while the batch keeps running: its slot repeats its last frame and its
+results are dropped (SURVEY.md §5.3).
+
+One device holds every stream: the JAX package's `lax.map` branch for
+several streams on a device exists for the TPU's scoped-VMEM limit, which
+the GPU does not have, so there is one path. `n_devices` above 1 waits for
+the multi-device layer (ROADMAP queue 1 item 8).
+
+Frames come from `open_reader(video)`: cv2's `VideoReader` by default, or
+any reader with height, width, seek(i) and read() (io/prefetch.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core import FilterParams, LKParams, NormalizeParams, measurement_grid
+from ..flow.device import resolve_device
+from ..flow.lk_grid import lk_grid_flow_prepared, lk_grid_flow_video
+from ..io.prefetch import FramePrefetcher
+from ..io.video import VideoReader
+from ..ops.lk import prepare_frame
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.logging import get_logger
+
+log = get_logger("apps.batch_runner")
+
+STAGED_CHUNK = 24  # frame pairs per chunk of run_batch_staged
+
+
+@dataclasses.dataclass
+class BatchRunnerConfig:
+    videos: list[str]
+    step: int = 30
+    max_frames: int | None = None
+    #: None or 1: every stream on one device
+    n_devices: int | None = None
+    lk: LKParams = LKParams()
+    norm: NormalizeParams = NormalizeParams()
+    filt: FilterParams = FilterParams()
+    #: checkpoint/resume for the streaming path: saves (step index,
+    #: previous frame batch, alive mask) atomically every
+    #: checkpoint_every steps; resumes from the file if present. The
+    #: resumed per-stream output sequence equals an uninterrupted run's.
+    checkpoint_path: str | None = None
+    checkpoint_every: int = 24
+    #: where the flow runs: the GPU unless "cpu" is asked for
+    device: str = "cuda"
+    #: opens a video: VideoReader (cv2) or any reader with its interface
+    open_reader: Callable = VideoReader
+
+
+def _device(cfg: BatchRunnerConfig) -> torch.device:
+    if cfg.n_devices not in (None, 1):
+        raise ValueError(
+            f"n_devices={cfg.n_devices}: streams over several devices need the multi-device "
+            "layer (ROADMAP queue 1 item 8); every stream runs on one device (n_devices None or 1)"
+        )
+    return resolve_device(cfg.device)
+
+
+def run_batch(cfg: BatchRunnerConfig) -> dict:
+    """Streams every video in lockstep through one stream-batched step per
+    frame index; returns run metrics and each stream's per-pair danger
+    counts (its `good` sums).
+
+    Frames cross through two pinned (B, H, W) buffers that alternate
+    between steps; the previous step's prepared pyramid stays on the
+    device. Each step's counts come back with one non-blocking copy behind
+    an event and are read one step late, while the next step runs. The
+    first step is run once before the clock starts (kernel build, index
+    caches)."""
+    dev = _device(cfg)
+    cuda = dev.type == "cuda"
+    b = len(cfg.videos)
+
+    # resume: restore (step index, previous frame batch, alive mask) and
+    # pick each stream's decode up where the checkpoint left it
+    resume = None
+    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        probe = cfg.open_reader(cfg.videos[0])
+        h0, w0 = probe.height, probe.width
+        probe.release()
+        resume = load_checkpoint(
+            cfg.checkpoint_path,
+            {
+                "n_steps": np.int64(0),
+                "prev": np.zeros((b, h0, w0), np.uint8),
+                "alive": np.zeros((b,), bool),
+            },
+        )
+        log.info("resuming at step %d", int(resume["n_steps"]))
+    # Invariant (kept across any number of resumes): after each step,
+    # `prev` holds frame index n_steps, and a checkpoint records exactly
+    # that pair. A resume restarts the counter at the saved n_steps and
+    # decodes from frame n_steps + 1.
+    n_steps0 = 0 if resume is None else int(resume["n_steps"])
+    start = 0 if resume is None else n_steps0 + 1  # first frame to decode
+    remaining = None if cfg.max_frames is None else cfg.max_frames - start
+    prefetchers = [
+        FramePrefetcher(v, start_frame=start, max_frames=remaining, open_reader=cfg.open_reader)
+        for v in cfg.videos
+    ]
+    try:
+        iters = [iter(p) for p in prefetchers]
+        if resume is None:
+            first = [next(it, None) for it in iters]
+            if any(f is None for f in first):
+                raise IOError("a stream has no first frame")
+            if any(f.shape != first[0].shape for f in first):
+                raise ValueError("streams must share resolution for batching")
+            first = np.stack(first)
+            alive = np.ones(b, bool)
+        else:
+            first = np.asarray(resume["prev"], np.uint8)
+            alive = np.array(resume["alive"], bool)
+        h, w = first.shape[1:]
+        pts = torch.from_numpy(measurement_grid(h, w, cfg.step)).to(dev)
+
+        frames_buf = [torch.empty((b, h, w), dtype=torch.uint8, pin_memory=cuda) for _ in range(2)]
+        counts_buf = [torch.empty((b,), dtype=torch.int32, pin_memory=cuda) for _ in range(2)]
+        frames_buf[0].numpy()[:] = first
+        prev_prep = prepare_frame(frames_buf[0].to(dev, non_blocking=True), cfg.lk)
+
+        def step(prev_prep, cur_prep):
+            return lk_grid_flow_prepared(prev_prep, cur_prep, pts, cfg.lk, cfg.norm, cfg.filt)
+
+        if cuda:  # build and cache outside the clock
+            step(prev_prep, prev_prep)
+            torch.cuda.synchronize(dev)
+
+        danger_counts: list[list[int]] = [[] for _ in range(b)]
+        n_steps = n_steps0
+        since_save = 0
+
+        def consume(p):
+            nonlocal since_save
+            slot, ready, alive_at, n_steps_at = p
+            if ready is not None:
+                ready.synchronize()  # this step's counts are in counts_buf[slot]
+            counts = counts_buf[slot].numpy()
+            for i in range(b):
+                if alive_at[i]:
+                    danger_counts[i].append(int(counts[i]))
+            since_save += 1
+            if cfg.checkpoint_path and since_save >= cfg.checkpoint_every:
+                save_checkpoint(
+                    cfg.checkpoint_path,
+                    n_steps=np.int64(n_steps_at),
+                    prev=frames_buf[slot].numpy().copy(),
+                    alive=alive_at.copy(),
+                )
+                since_save = 0
+
+        # (buffer slot, ready event, alive mask, step index) of the step
+        # whose counts are still to be read
+        pending = None
+        slot = 0  # the buffer that holds the previous frame batch
+        t0 = time.time()
+        while alive.any():
+            # this buffer's last copies (two steps back) were waited for
+            # when that step was consumed
+            nslot = 1 - slot
+            cur, prev = frames_buf[nslot].numpy(), frames_buf[slot].numpy()
+            for i, it in enumerate(iters):
+                nxt = next(it, None) if alive[i] else None
+                if nxt is None:
+                    if alive[i]:
+                        alive[i] = False  # stream ended; keep the batch shape, mask its results
+                        log.info("stream %d ended at step %d", i, n_steps)
+                    cur[i] = prev[i]
+                else:
+                    cur[i] = nxt
+            if not alive.any():
+                break
+            cur_prep = prepare_frame(frames_buf[nslot].to(dev, non_blocking=True), cfg.lk)
+            res = step(prev_prep, cur_prep)
+            counts_buf[nslot].copy_(res.good.sum(-1, dtype=torch.int32), non_blocking=True)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(dev))
+            n_steps += 1
+            last, pending = pending, (nslot, ready, alive.copy(), n_steps)
+            if last is not None:
+                consume(last)
+            prev_prep, slot = cur_prep, nslot
+        if pending is not None:
+            consume(pending)
+        wall = time.time() - t0
+    finally:
+        for p in prefetchers:
+            p.close()
+
+    total_frames = sum(len(d) for d in danger_counts)
+    return {
+        "streams": b,
+        "devices": 1,
+        "steps": n_steps - n_steps0,
+        "first_step": start,
+        "total_frames": total_frames,
+        "wall_s": wall,
+        "aggregate_fps": total_frames / max(wall, 1e-9),
+        "mean_danger_per_stream": [float(np.mean(d)) if d else 0.0 for d in danger_counts],
+        "danger_counts": danger_counts,
+    }
+
+
+def run_batch_staged(cfg: BatchRunnerConfig, reps: int = 3) -> dict:
+    """The compute path without decode or per-step uploads: every stream's
+    frames staged on the device once (uint8), then each stream scanned in
+    chunks of STAGED_CHUNK pairs overlapping by one frame through
+    `lk_grid_flow_video`, the tail chunk padded with its last frame and its
+    padded pairs dropped. Streams run one after another, as in the JAX
+    package. The per-stream counts equal run_batch's; they come back with
+    one copy per pass. Steady-state time: best of `reps` passes after a
+    first one (kernel build, index caches)."""
+    dev = _device(cfg)
+    frames = []
+    for v in cfg.videos:
+        pre = FramePrefetcher(v, max_frames=cfg.max_frames, open_reader=cfg.open_reader)
+        try:
+            frames.append(np.stack(list(pre)))
+        finally:
+            pre.close()
+    h, w = frames[0].shape[1:]
+    pts = torch.from_numpy(measurement_grid(h, w, cfg.step)).to(dev)
+    dev_streams = [torch.from_numpy(f).to(dev) for f in frames]
+    lengths = [max(f.shape[0] - 1, 0) for f in frames]
+
+    def run_once() -> list[list[int]]:
+        counts = []
+        for f in dev_streams:
+            t = f.shape[0]
+            start = 0
+            while start + 1 < t:
+                stop = min(start + STAGED_CHUNK + 1, t)
+                piece = f[start:stop]
+                valid = piece.shape[0] - 1
+                if valid < STAGED_CHUNK:
+                    piece = torch.cat([piece, piece[-1:].expand(STAGED_CHUNK - valid, h, w)])
+                res = lk_grid_flow_video(piece, pts, cfg.lk, cfg.norm, cfg.filt, device=dev)
+                counts.append(res.good.sum(1)[:valid])
+                start = stop - 1
+        # one copy for the pass; a <2-frame stream has an empty sequence
+        flat = torch.cat(counts).tolist() if counts else []
+        offs = np.cumsum([0] + lengths)
+        return [flat[offs[i] : offs[i + 1]] for i in range(len(lengths))]
+
+    def timed() -> tuple[list[list[int]], float]:
+        t0 = time.time()
+        out = run_once()  # ends in a copy to the host
+        return out, time.time() - t0
+
+    counts, compile_s = timed()
+    best = float("inf")
+    for _ in range(reps):
+        counts, secs = timed()
+        best = min(best, secs)
+    total_frames = sum(len(c) for c in counts)
+    return {
+        "streams": len(frames),
+        "total_frames": total_frames,
+        "wall_s": best,
+        "compile_s": compile_s,
+        "aggregate_fps": total_frames / max(best, 1e-9),
+        "mean_danger_per_stream": [float(np.mean(c)) if c else 0.0 for c in counts],
+        "danger_counts": counts,
+    }
+
+
+def main(argv: list[str] | None = None) -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(description="multi-stream batched pathfinder on PyTorch (GPU unless --device cpu)")
+    p.add_argument("videos", nargs="+")
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument(
+        "--staged",
+        action="store_true",
+        help="compute-path mode: stage all frames on the device once and scan there (no per-step upload)",
+    )
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    cfg = BatchRunnerConfig(
+        videos=args.videos,
+        max_frames=args.max_frames,
+        checkpoint_path=args.checkpoint,
+        # production path: the static-grid lanes kernels, all streams per launch
+        lk=LKParams(grid_step=30, compute_err=False),
+        device=args.device,
+    )
+    stats = run_batch_staged(cfg) if args.staged else run_batch(cfg)
+    stats.pop("danger_counts", None)
+    print(stats)
+
+
+if __name__ == "__main__":
+    main()

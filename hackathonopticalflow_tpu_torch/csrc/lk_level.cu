@@ -37,6 +37,10 @@
 //      window straight from the padded level plane (<= 9 MB at 1080p, it
 //      stays in the 50 MB L2; L1 serves the overlap of neighbouring lanes
 //      and iterations), and exits as soon as the point is inactive.
+// Stream-batched calls (ops/lk_level.py): the planes are (nb, hp, wp) and
+// the points stream-major, so point pt reads plane pt / (n / nb): one
+// base-pointer offset per point, in every geometry; clamps and origins stay
+// per plane. One launch serves every stream.
 // Nothing is staged in shared memory. The crop geometries' window origin
 // in the plane is the clamped crop origin plus the window's clamped offset
 // in the crop, clamp(floor(tl) - crop base, 0, 2m), which names the very
@@ -274,8 +278,8 @@ template <int WARPS, int K, bool WALK, bool EXACT_BLEND>
 __global__ void __launch_bounds__(Block<WARPS>::threads, Block<WARPS>::min_blocks)
 lk_level_kernel(
     const float* __restrict__ tmpl,      // (N, 3, win_h, win_w)
-    const float* __restrict__ plane,     // (hp, wp) padded level plane
-    int hp, int wp, int pad,
+    const float* __restrict__ plane,     // (nb, hp, wp) padded level planes
+    int nb, int hp, int wp, int pad,
     const float* __restrict__ tl0,       // (N, 2) initial window top-left
     const int* __restrict__ crop_org,    // (N, 2) unpadded crop origin [x, y]
     const unsigned char* __restrict__ status0,  // (N,)
@@ -293,6 +297,8 @@ lk_level_kernel(
   const int tid = threadIdx.x % TEAM, lane = threadIdx.x & 31, warp = tid >> 5;
   const int npix = win_w * win_h;
   const Slots sl = lane_slots<K>(tid, TEAM, win_w, win_h, wp);
+  // the point's stream: its plane (points are stream-major, n / nb each)
+  const float* pl = plane + (size_t)(pt / (n / nb)) * hp * wp;
 
   // ---- 0. where the window lies at an estimate that passed the oob gate:
   // the crop's clamped origin in the plane (the gather_rects_panels carve,
@@ -322,14 +328,14 @@ lk_level_kernel(
       if (iy < 0) iy += hp;
       ix = min(max(ix, 0), wp - win_w - 1);
       iy = min(max(iy, 0), hp - win_h - 1);
-      return plane + (size_t)iy * wp + ix;
+      return pl + (size_t)iy * wp + ix;
     }
     const float fx = floorf(x), fy = floorf(y);
     ax = __fsub_rn(x, fx);
     ay = __fsub_rn(y, fy);
     const int ox = min(max((int)fx - cbx, 0), 2 * m);  // fx passed the oob gate
     const int oy = min(max((int)fy - cby, 0), 2 * m);
-    return plane + (size_t)(oy0 + oy) * wp + ox0 + ox;
+    return pl + (size_t)(oy0 + oy) * wp + ox0 + ox;
   };
 
   // ---- 1. template gradients (registers, x32) + structure tensor ----
@@ -498,25 +504,27 @@ KernelFn pick(int warps, int k, bool walk, bool exact, int* threads) {
 }  // namespace
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// geometry: CENTRED (0), V1 (1) or EXACT (2); active0 may be null;
+// geometry: CENTRED (0), V1 (1) or EXACT (2); active0 may be null; plane
+// holds nb planes of hp x wp, and nb divides n (n / nb points each);
 // (warps, k): the team shape, one of ops/lk_level.py::LAUNCH_SHAPES with
 // 32 * warps * k >= win_w * win_h, or with walk its WALK_SHAPE, which takes
 // any window.
 extern "C" int lk_level_launch(
-    const float* tmpl, const float* plane, int hp, int wp, int pad,
+    const float* tmpl, const float* plane, int nb, int hp, int wp, int pad,
     const float* tl0, const int* crop_org, const unsigned char* status0,
     const unsigned char* active0, float* tl_out, unsigned char* status_out,
     int n, int m, int win_w, int win_h, int level_w, int level_h,
     int max_iters, float eps2, int is_level0, float min_eig_threshold,
     int geometry, int warps, int k, int walk, void* stream) {
-  if (geometry < CENTRED || geometry > EXACT) return (int)cudaErrorInvalidValue;
+  if (geometry < CENTRED || geometry > EXACT || nb < 1 || n % nb != 0)
+    return (int)cudaErrorInvalidValue;
   int threads = 0;
   const KernelFn fn = pick(warps, k, walk != 0, geometry == EXACT, &threads);
   if (fn == nullptr || (!walk && 32 * warps * k < win_w * win_h)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int teams = threads / (32 * warps);
   fn<<<(n + teams - 1) / teams, threads, 0, (cudaStream_t)stream>>>(
-      tmpl, plane, hp, wp, pad, tl0, crop_org, status0, active0, tl_out,
+      tmpl, plane, nb, hp, wp, pad, tl0, crop_org, status0, active0, tl_out,
       status_out, n, geometry, m, win_w, win_h, level_w, level_h, max_iters,
       eps2, is_level0, min_eig_threshold);
   return (int)cudaGetLastError();

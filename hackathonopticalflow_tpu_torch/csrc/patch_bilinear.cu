@@ -24,6 +24,10 @@
 // the library is built with -fmad=false), as the separate PyTorch ops of
 // patch_bilinear_reference round them: the two agree bit for bit.
 //
+// Stream-batched calls: planes (nb, C, hp, wp) and the points stream-major
+// (n / nb each), so point pt reads stack pt / (n / nb): one base-pointer
+// offset; the clamps stay per plane. One launch serves every stream.
+//
 // Design: no shared memory. A block is (lanes, points): threadIdx.y picks
 // one of `points` points, threadIdx.x one of the `lanes` threads that share
 // its window, blockIdx.y the channel. Each thread computes the point's
@@ -68,8 +72,8 @@ constexpr float MAX_ORIGIN = 1073741824.0f;  // 2^30: origins saturate there
 // EPT: outputs per thread per pass (2 for windows of <= 512 px, else 8).
 template <int EPT>
 __global__ void __launch_bounds__(MAX_LANES) patch_bilinear_kernel(
-    const float* __restrict__ planes,  // (C, hp, wp)
-    int c, int hp, int wp,
+    const float* __restrict__ planes,  // (nb, C, hp, wp)
+    int nb, int c, int hp, int wp,
     const float* __restrict__ tl,      // (N, 2) top-left [x, y]
     int n, int size_h, int size_w, int quantize,
     float* __restrict__ out) {         // (N, C, size_h, size_w)
@@ -93,7 +97,8 @@ __global__ void __launch_bounds__(MAX_LANES) patch_bilinear_kernel(
   const float w01 = __fmul_rn(bx, ay);
   const float w11 = __fmul_rn(ax, ay);
 
-  const float* src = planes + ((size_t)chan * hp + iy) * wp + ix;
+  const int stack = pt / (n / nb);  // points are stream-major
+  const float* src = planes + (((size_t)stack * c + chan) * hp + iy) * wp + ix;
   const int per_out = size_h * size_w;
   float* o = out + ((size_t)pt * c + chan) * per_out;
   int r = tx / size_w, col = tx - r * size_w;  // element tx
@@ -147,18 +152,19 @@ KernelFn pick(int size_h, int size_w) {
 }  // namespace
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-extern "C" int patch_bilinear_launch(const float* planes, int c, int hp,
+// planes holds nb stacks of C planes; nb divides n (n / nb points each).
+extern "C" int patch_bilinear_launch(const float* planes, int nb, int c, int hp,
                                      int wp, const float* tl, int n,
                                      int size_h, int size_w, int quantize,
                                      float* out, void* stream) {
-  if (c < 1 || c > 65535 || size_h < 1 || size_w < 1 || hp < size_h + 1 ||
-      wp < size_w + 1)
+  if (nb < 1 || n % nb != 0 || c < 1 || c > 65535 || size_h < 1 || size_w < 1 ||
+      hp < size_h + 1 || wp < size_w + 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const dim3 block = block_shape(size_h, size_w);
   const dim3 grid((n + block.y - 1) / block.y, c);
   pick(size_h, size_w)<<<grid, block, 0, (cudaStream_t)stream>>>(
-      planes, c, hp, wp, tl, n, size_h, size_w, quantize, out);
+      planes, nb, c, hp, wp, tl, n, size_h, size_w, quantize, out);
   return (int)cudaGetLastError();
 }
 

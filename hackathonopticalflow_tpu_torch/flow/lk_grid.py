@@ -7,6 +7,11 @@ hackathonopticalflow_tpu/flow/lk_grid.py.
 3. reconstructed endpoints, reference rounding int32(x + 0.5);
 4. robust mask median*1.0 < m < P99.
 All points are returned with a good/bad mask (no ragged compaction).
+
+Frames may carry a stream axis: (B, H, W) frames and one shared (N, 2)
+grid give fields of shape (B, N, ...), each stream's as its own call gives
+it (the statistics of step 4 per stream), from one LK launch per level for
+all streams; that is what `jax.vmap` of the JAX function computes.
 """
 
 from __future__ import annotations
@@ -19,11 +24,12 @@ import torch
 from ..core import FilterParams, LKParams, NormalizeParams
 from ..nav.filter import robust_mask
 from ..nav.normalize import radial_normalize
-from ..ops.lk import prepare_frame, pyr_lk, pyr_lk_prepared
+from ..ops.lk import PreparedFrame, _frame_pad, prepare_frame, pyr_lk, pyr_lk_prepared
 from .device import resolve_device
 
 
 class GridFlowResult(NamedTuple):
+    # shapes of one stream; a stream-batched call prefixes (B,)
     raw_next_pts: torch.Tensor  # (N, 2) float32 — LK output before normalize
     flow: torch.Tensor  # (N, 2) int32 — normalized rounded endpoint - point
     next_pts: torch.Tensor  # (N, 2) int32 — normalized rounded endpoints
@@ -40,42 +46,43 @@ def _round_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_grid_result(res: GridFlowResult) -> torch.Tensor:
-    """Flatten a batched (T-step) GridFlowResult into one (T, 10*N)
-    float32 tensor, so a consumer copies ONE buffer to the host per chunk.
-    `pts` is left out: it is the constant grid the caller holds. int32
-    fields round-trip through f32, exact for |v| < 2^24."""
-    t = res.modulus.shape[0]
+    """Flatten a batched GridFlowResult (leading axes L: T steps, and a
+    stream axis if any) into one (*L, 10*N) float32 tensor, so a consumer
+    copies ONE buffer to the host per chunk. `pts` is left out: it is the
+    constant grid the caller holds. int32 fields round-trip through f32,
+    exact for |v| < 2^24."""
+    lead = res.modulus.shape[:-1]
     f32 = torch.float32
     return torch.cat(
         [
-            res.raw_next_pts.reshape(t, -1),
-            res.flow.to(f32).reshape(t, -1),
-            res.next_pts.to(f32).reshape(t, -1),
+            res.raw_next_pts.reshape(*lead, -1),
+            res.flow.to(f32).reshape(*lead, -1),
+            res.next_pts.to(f32).reshape(*lead, -1),
             res.modulus,
             res.ang,
             res.good.to(f32),
             res.status.to(f32),
         ],
-        dim=1,
+        dim=-1,
     )
 
 
 def unpack_grid_result(packed: np.ndarray, pts_i: np.ndarray) -> GridFlowResult:
-    """Host-side inverse of pack_grid_result: `packed` is the (T, 10*N)
+    """Host-side inverse of pack_grid_result: `packed` is the (*L, 10*N)
     array on the host, `pts_i` the (N, 2) int32 rounded grid. Fields are
-    numpy arrays."""
-    t = packed.shape[0]
+    numpy arrays of shape (*L, N, ...)."""
+    lead = packed.shape[:-1]
     n = pts_i.shape[0]
     o = [0, 2 * n, 4 * n, 6 * n, 7 * n, 8 * n, 9 * n, 10 * n]
     return GridFlowResult(
-        raw_next_pts=packed[:, o[0] : o[1]].reshape(t, n, 2),
-        flow=packed[:, o[1] : o[2]].reshape(t, n, 2).astype(np.int32),
-        next_pts=packed[:, o[2] : o[3]].reshape(t, n, 2).astype(np.int32),
-        pts=np.ascontiguousarray(np.broadcast_to(pts_i, (t, n, 2))),
-        modulus=packed[:, o[3] : o[4]],
-        ang=packed[:, o[4] : o[5]],
-        good=packed[:, o[5] : o[6]] != 0.0,
-        status=packed[:, o[6] : o[7]] != 0.0,
+        raw_next_pts=packed[..., o[0] : o[1]].reshape(*lead, n, 2),
+        flow=packed[..., o[1] : o[2]].reshape(*lead, n, 2).astype(np.int32),
+        next_pts=packed[..., o[2] : o[3]].reshape(*lead, n, 2).astype(np.int32),
+        pts=np.ascontiguousarray(np.broadcast_to(pts_i, (*lead, n, 2))),
+        modulus=packed[..., o[3] : o[4]],
+        ang=packed[..., o[4] : o[5]],
+        good=packed[..., o[5] : o[6]] != 0.0,
+        status=packed[..., o[6] : o[7]] != 0.0,
     )
 
 
@@ -88,11 +95,12 @@ def _post_lk(
     filt: FilterParams,
 ) -> GridFlowResult:
     """Radial normalization + robust filtering + reference rounding
-    (pathfinder_viewer.py:159-176) applied to an LK result."""
+    (pathfinder_viewer.py:159-176) applied to an LK result of shape
+    ([B,] N, ...); the (N, 2) points are shared by the streams."""
     half_w = int(w / 2)
     half_h = int(h / 2)
     flow_raw = res.next_pts - pts
-    fx, fy = flow_raw[:, 0], flow_raw[:, 1]
+    fx, fy = flow_raw[..., 0], flow_raw[..., 1]
     x, y = pts[:, 0], pts[:, 1]
     ang = torch.atan2(fy, fx)
     modulus = torch.sqrt(fx * fx + fy * fy)
@@ -100,7 +108,7 @@ def _post_lk(
     nfx = modulus * torch.cos(ang)
     nfy = modulus * torch.sin(ang)
     next_pts = _round_ref(torch.stack([x + nfx, y + nfy], dim=-1))
-    pts_i = _round_ref(pts)
+    pts_i = _round_ref(pts).expand_as(next_pts)
     good = robust_mask(modulus, filt)
     return GridFlowResult(
         raw_next_pts=res.next_pts,
@@ -124,13 +132,14 @@ def lk_grid_flow(
     device: torch.device | str = "cuda",
 ) -> GridFlowResult:
     """prev_gray/gray: (H, W) grayscale in [0, 255] (uint8 welcome: they
-    move to `device` as they are and are cast there); pts: (N, 2). Runs on
-    the GPU unless device="cpu"."""
+    move to `device` as they are and are cast there), or (B, H, W), one
+    frame per stream; pts: (N, 2), shared by the streams. Fields are (N,
+    ...) or (B, N, ...). Runs on the GPU unless device="cpu"."""
     device = resolve_device(device)
     prev_gray = prev_gray.to(device).to(torch.float32)
     gray = gray.to(device).to(torch.float32)
     pts = pts.to(device=device, dtype=torch.float32)
-    h, w = gray.shape
+    h, w = gray.shape[-2:]
     # backward flow: track grid points from the current frame into the
     # previous one
     res = pyr_lk(gray, prev_gray, pts, lk)
@@ -153,13 +162,29 @@ def lk_grid_flow_video(
     device = resolve_device(device)
     frames = frames.to(device)
     pts = pts.to(device=device, dtype=torch.float32)
-    h, w = frames.shape[-2:]
     prev_prep = prepare_frame(frames[0], lk)
     steps = []
     for t in range(1, frames.shape[0]):
         cur_prep = prepare_frame(frames[t], lk)
-        # viewer semantics: the current frame is the LK template source
-        res = pyr_lk_prepared(cur_prep, prev_prep, pts, lk)
-        steps.append(_post_lk(res, pts, h, w, norm, filt))
+        steps.append(lk_grid_flow_prepared(prev_prep, cur_prep, pts, lk, norm, filt))
         prev_prep = cur_prep
     return GridFlowResult(*(torch.stack(f) for f in zip(*steps)))
+
+
+def lk_grid_flow_prepared(
+    prev_prep: PreparedFrame,
+    cur_prep: PreparedFrame,
+    pts: torch.Tensor,
+    lk: LKParams = LKParams(),
+    norm: NormalizeParams = NormalizeParams(),
+    filt: FilterParams = FilterParams(),
+) -> GridFlowResult:
+    """lk_grid_flow over frames prepared with `ops/lk.py::prepare_frame`
+    (with or without a stream axis), on their device; pts (N, 2) float32
+    there. A clip loop prepares each frame once and carries it to the next
+    step as the previous frame."""
+    pad = _frame_pad(lk)
+    h, w = (s - 2 * pad for s in cur_prep.img_p[0].shape[-2:])
+    # viewer semantics: the current frame is the LK template source
+    res = pyr_lk_prepared(cur_prep, prev_prep, pts, lk)
+    return _post_lk(res, pts, h, w, norm, filt)

@@ -8,6 +8,9 @@ overlaps the device's work. The thread touches no CUDA state: it yields
 host uint8 arrays, and the consumer moves them to the device. An error in
 the reader or the gray conversion ends the thread and is raised in the
 consuming thread, after the frames before it.
+
+`batch_frames` decodes a run of frames into one device-resident (count,
+H, W) uint8 tensor with a single transfer (the shape the clip scans take).
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import numpy as np
 import torch
 
 from . import native_lib
+from ..flow.device import resolve_device
 from ..ops.color import bgr2gray
+from ..ops.image import resize_area
 from .video import VideoReader
 
 
@@ -110,3 +115,36 @@ class FramePrefetcher:
         """Stops the decode thread and waits for it."""
         self._stop.set()
         self._thread.join()
+
+
+def batch_frames(
+    path: str,
+    start: int,
+    count: int,
+    resize_hw: tuple[int, int] | None = None,
+    device: torch.device | str = "cuda",
+    open_reader: Callable = VideoReader,
+) -> torch.Tensor:
+    """Decode up to `count` consecutive gray frames from frame `start` into
+    one (count, H, W) uint8 tensor on `device` (the GPU unless "cpu"),
+    moved there with one copy. With resize_hw = (h, w), each frame is
+    shrunk there by `ops/image.py::resize_area` (cv2's INTER_AREA), rounded
+    half up."""
+    dev = resolve_device(device)
+    out = []
+    reader = open_reader(path)
+    try:
+        if start:
+            reader.seek(start)
+        for _ in range(count):
+            frame = reader.read()
+            if frame is None:
+                break
+            out.append(to_gray(frame))
+    finally:
+        reader.release()
+    frames = upload(np.stack(out), dev)
+    if resize_hw is not None:
+        small = resize_area(frames.to(torch.float32), resize_hw[0], resize_hw[1])
+        frames = torch.clamp(torch.floor(small + 0.5), 0, 255).to(torch.uint8)
+    return frames

@@ -16,7 +16,9 @@ def radial_normalize(
     half_h: float,
     params: NormalizeParams = NormalizeParams(),
 ) -> torch.Tensor:
-    """modulus / (offset + sqrt(dist_to_center)) * gain, elementwise."""
+    """modulus / (offset + sqrt(dist_to_center)) * gain, elementwise; a
+    stream-batched (B, N) modulus broadcasts against the shared (N,)
+    point coordinates."""
     dist_center = torch.sqrt((half_w - x) ** 2 + (half_h - y) ** 2)
     return modulus / (params.offset + torch.sqrt(dist_center)) * params.gain
 

@@ -1,12 +1,14 @@
 """Dense image primitives (port of hackathonopticalflow_tpu/ops/image.py):
 separable correlation with reflect-101 or replicate borders, Gaussian taps
-and blur, doubling box sums, OpenCV-compatible resizes.
+and blur, doubling box sums, OpenCV-compatible resizes, a single-channel
+VALID correlation.
 
-The passes are shifted multiply-adds and index gathers, as the JAX
-package's TPU branch computes them, never F.conv2d or F.interpolate: cuDNN
-runs float32 convolutions in TF32 by default, which breaks the
+The separable passes are shifted multiply-adds and index gathers, as the
+JAX package's TPU branch computes them, never F.conv2d or F.interpolate:
+cuDNN runs float32 convolutions in TF32 by default, which breaks the
 floor(x + 0.5) u8 quantization of the pyramid and the Farneback parity
-budget."""
+budget. conv2d_single, a general 2-D kernel that XLA computes outside any
+Pallas kernel in the JAX package, is one F.conv2d with TF32 off."""
 
 from __future__ import annotations
 
@@ -202,6 +204,19 @@ def resize_area(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         x = torch.einsum("oh,...hw->...ow", wy, img.double())
         return torch.einsum("...hw,ow->...ho", x, wx).to(img.dtype)
     return resize_bilinear(img, out_h, out_w)
+
+
+def conv2d_single(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """VALID 2-D correlation of (..., H, W) with a (kh, kw) kernel, in
+    img's dtype; TF32 is off, so float32 stays float32."""
+    h, w = img.shape[-2:]
+    x = img.reshape(-1, 1, h, w)
+    k = kernel.to(device=img.device, dtype=img.dtype)[None, None]
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        y = torch.nn.functional.conv2d(x, k)
+    return y.reshape(*img.shape[:-2], *y.shape[-2:])
 
 
 def threshold_binary(img: torch.Tensor, thresh: float, maxval: float = 255.0) -> torch.Tensor:

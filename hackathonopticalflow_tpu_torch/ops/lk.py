@@ -26,6 +26,12 @@ Two paths, chosen by params.grid_step; every level runs
   path); with neither, the exact path (JAX's default LKParams(): each
   iteration reads its window from the plane).
 
+Frames may carry a stream axis: prepare_frame takes (B, H, W), and
+pyr_lk_prepared then tracks the same points in every stream, laid out
+stream-major (B * N rows, stream b's at rows b*N .. b*N+N-1), with one
+`lk_level` launch per level for all streams; its results are (B, N, ...).
+The cached index tensors stay per grid: streams share them.
+
 Level 0 also gives OpenCV's err, the mean |window - template| at each
 point's final position, 0 where status is false: always on the
 arbitrary-point paths and with compute_err on the grid path, as the JAX
@@ -58,7 +64,7 @@ class PreparedFrame(NamedTuple):
     """Per-frame quantized pyramid levels and Scharr derivatives, padded
     for window sampling; built once per frame of a clip."""
 
-    img_p: tuple  # per level: (H+2p, W+2p) reflect-101 padded image
+    img_p: tuple  # per level: ([B,] H+2p, W+2p) reflect-101 padded image
     dix_p: tuple  # per level: zero-padded d/dx
     diy_p: tuple  # per level: zero-padded d/dy
 
@@ -104,7 +110,8 @@ def _check_params(params: LKParams) -> None:
 
 
 def prepare_frame(img: torch.Tensor, params: LKParams) -> PreparedFrame:
-    """img: (H, W) grayscale in [0, 255] (any dtype; cast to float32)."""
+    """img: (H, W) grayscale in [0, 255] (any dtype; cast to float32), or
+    (B, H, W), one frame per stream: every level keeps the stream axis."""
     _check_params(params)
     pad = _frame_pad(params)
     pyr = build_pyramid(img.to(torch.float32), params.max_level)
@@ -191,10 +198,12 @@ def _anchored_crops(
     xs, ys = grid_xy
     base = _slab_bases(axis_key(xs), axis_key(ys), level, (win_w - 1) * 0.5 + mx,
                        (win_h - 1) * 0.5 + my, tl0.device)
-    raw = torch.floor(tl0).to(torch.int32) - base - m
+    # stream-major points: each stream's rows meet the one grid's bases
+    n = base.shape[0]
+    raw = (torch.floor(tl0).to(torch.int32).view(-1, n, 2) - base - m).view(-1, 2)
     fits = (raw[:, 0] >= 0) & (raw[:, 0] <= slack_x) & (raw[:, 1] >= 0) & (raw[:, 1] <= slack_y)
     off = torch.stack([raw[:, 0].clamp(0, slack_x), raw[:, 1].clamp(0, slack_y)], dim=-1)
-    return base + off, fits
+    return (base + off.view(-1, n, 2)).view(-1, 2), fits
 
 
 def level_inputs(
@@ -207,15 +216,16 @@ def level_inputs(
 ) -> tuple[tuple, dict]:
     """The arguments of `lk_level` (all but status0) for one level of the
     grid path: templates at the grid points of `prev_prep`, search in
-    `next_prep` from `next_center`. Returns ((tmpl, plane_p, pad, tl0,
+    `next_prep` from `next_center`. With a stream axis, next_center holds
+    the streams' points stream-major. Returns ((tmpl, plane_p, pad, tl0,
     crop_org), keyword arguments)."""
     xs, ys = grid_xy
     win_w, win_h = params.win_size
     pad = _frame_pad(params)
     img_prev_p = prev_prep.img_p[level]
-    h = img_prev_p.shape[0] - 2 * pad
-    w = img_prev_p.shape[1] - 2 * pad
-    planes = torch.stack([img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]])
+    h = img_prev_p.shape[-2] - 2 * pad
+    w = img_prev_p.shape[-1] - 2 * pad
+    planes = torch.stack([img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]], dim=-3)
     tmpl = extract_grid_templates(planes, xs, ys, level, win_w, win_h, pad)
 
     tl0 = next_center - _halfwin(params, next_center.device)
@@ -298,20 +308,21 @@ def point_level_inputs(
     """The arguments of `lk_level` (all but status0) for one level of the
     arbitrary-point path: templates at pts / 2^level in `prev_prep`
     (zeroed where the template window lies outside the frame), search in
-    `next_prep` from `next_center`. Returns ((tmpl, plane_p, pad, tl0,
-    crop_org), keyword arguments, template image) — the last unzeroed,
-    for err."""
+    `next_prep` from `next_center`. With a stream axis, pts and
+    next_center hold the streams' points stream-major. Returns ((tmpl,
+    plane_p, pad, tl0, crop_org), keyword arguments, template image) — the
+    last unzeroed, for err."""
     win_w, win_h = params.win_size
     pad = _frame_pad(params)
     halfwin = _halfwin(params, pts.device)
     img_prev_p = prev_prep.img_p[level]
-    h = img_prev_p.shape[0] - 2 * pad
-    w = img_prev_p.shape[1] - 2 * pad
+    h = img_prev_p.shape[-2] - 2 * pad
+    w = img_prev_p.shape[-1] - 2 * pad
 
     tmpl_tl = pts * (1.0 / (1 << level)) - halfwin
     it = torch.floor(tmpl_tl)
     oob_tmpl = (it[:, 0] < -win_w) | (it[:, 0] >= w) | (it[:, 1] < -win_h) | (it[:, 1] >= h)
-    planes = torch.stack([img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]])
+    planes = torch.stack([img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]], dim=-3)
     tmpl = extract_patches_multi(planes, tmpl_tl + float(pad), win_h, win_w, quantize=True)
     # the spectral gate rejects a zero template: at level 0 its status dies
     tmpl_k = torch.where(oob_tmpl[:, None, None, None], torch.zeros_like(tmpl), tmpl)
@@ -372,7 +383,8 @@ def pyr_lk(
     params: LKParams = LKParams(),
 ) -> LKResult:
     """Track pts (N, 2) [x, y] from img_prev to img_next ((H, W) grayscale
-    in [0, 255]). With params.grid_step set, pts must be
+    in [0, 255], or (B, H, W): the same points in every stream, results
+    (B, N, ...)). With params.grid_step set, pts must be
     measurement_grid(H, W, params.grid_step)."""
     prep_prev = prepare_frame(img_prev, params)
     prep_next = prepare_frame(img_next, params)
@@ -385,19 +397,25 @@ def pyr_lk_prepared(
     pts: torch.Tensor,
     params: LKParams = LKParams(),
 ) -> LKResult:
-    """pyr_lk over frames prepared with prepare_frame (the video form)."""
+    """pyr_lk over frames prepared with prepare_frame (the video form).
+    Frames with a stream axis B track pts (N, 2) in every stream, as B * N
+    stream-major points, and give results of shape (B, N, ...)."""
     _check_params(params)
     pts = pts.to(torch.float32)
+    n_pts = pts.shape[0]
+    streams = prep_prev.img_p[0].shape[0] if prep_prev.img_p[0].dim() == 3 else None
+    if streams is not None:
+        pts = pts.repeat(streams, 1)  # stream-major: stream b's rows b*N ..
     if params.grid_step is not None:
         pad = _frame_pad(params)
-        h = prep_prev.img_p[0].shape[0] - 2 * pad
-        w = prep_prev.img_p[0].shape[1] - 2 * pad
+        h = prep_prev.img_p[0].shape[-2] - 2 * pad
+        w = prep_prev.img_p[0].shape[-1] - 2 * pad
         grid_xy = _grid_axes(h, w, params.grid_step)
         n_grid = len(grid_xy[0]) * len(grid_xy[1])
-        if n_grid != pts.shape[0]:
+        if n_grid != n_pts:
             raise ValueError(
                 f"pts must be measurement_grid({h}, {w}, {params.grid_step}): "
-                f"expected {n_grid} points, got {pts.shape[0]}"
+                f"expected {n_grid} points, got {n_pts}"
             )
 
         def level_step(center, status, level):
@@ -415,4 +433,7 @@ def pyr_lk_prepared(
         next_center, status, err = level_step(next_center, status, level)
     if err is None:
         err = torch.zeros(pts.shape[0], dtype=torch.float32, device=pts.device)
-    return LKResult(next_pts=next_center, status=status, err=err)
+    res = LKResult(next_pts=next_center, status=status, err=err)
+    if streams is not None:
+        res = LKResult(*(f.reshape(streams, n_pts, *f.shape[1:]) for f in res))
+    return res

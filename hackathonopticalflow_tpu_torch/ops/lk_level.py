@@ -51,6 +51,11 @@ templates on the 1/32 grid (`extract_grid_templates`,
 1/32 scale on u8 frames) and image values in [0, 255]. (JAX's kernels and
 exact path sum in float32, so the port meets them to a tolerance.)
 
+A call may carry several streams: plane_p (B, Hp, Wp) with the points
+stream-major (B * n rows, stream b's at rows b*n .. b*n+n-1), so every
+stream's level runs in one launch; each point reads its own stream's plane,
+with that plane's clamps.
+
 The kernel runs a team of warps per point, sized to the window by
 `launch_shape`; windows past MAX_PIXELS take a team that walks the window
 in passes, so the kernel takes every window the plain version takes.
@@ -171,7 +176,7 @@ def lk_level_reference(
     # crop origin in the padded plane, clamped as dynamic_slice clamps it;
     # window offsets count from the unclamped origin (centred) or from the
     # clamped one (v1)
-    hp, wp = plane_p.shape
+    hp, wp = plane_p.shape[-2:]
     cw, ch = crop_size(geometry, m, win_w, win_h)
     # (unused in "exact")
     ox0 = torch.clamp(crop_org[:, 0] + pad, 0, wp - cw)
@@ -182,6 +187,9 @@ def lk_level_reference(
         cbx, cby = crop_org[:, 0], crop_org[:, 1]
     rr = torch.arange(win_h + 1, device=dev)
     cc = torch.arange(win_w + 1, device=dev)
+    planes = plane_p.reshape(-1, hp, wp)  # (B, Hp, Wp); B = 1 for one plane
+    n = tmpl.shape[0]
+    stream = (torch.arange(n, device=dev) // max(n // planes.shape[0], 1))[:, None, None]
 
     for j in range(max_iters):
         ixf = torch.floor(tlx)
@@ -195,7 +203,7 @@ def lk_level_reference(
 
         if geometry == "exact":
             tl_p = torch.stack([tlx, tly], dim=-1) + float(pad)
-            jw = patch_bilinear_reference(plane_p[None], tl_p, win_h, win_w, True)[:, 0]
+            jw = patch_bilinear_reference(planes[:, None], tl_p, win_h, win_w, True)[:, 0]
         else:
             ax = (tlx - ixf)[:, None, None]
             ay = (tly - iyf)[:, None, None]
@@ -203,7 +211,7 @@ def lk_level_reference(
             oy = torch.clamp(iyf.to(torch.int32) - cby, 0, 2 * m)
             rows = (oy0 + oy)[:, None] + rr  # (N, win_h+1)
             cols = (ox0 + ox)[:, None] + cc  # (N, win_w+1)
-            raw = plane_p[rows[:, :, None], cols[:, None, :]]
+            raw = planes[stream, rows[:, :, None], cols[:, None, :]]
             jw = _fix(
                 raw[:, :win_h, :win_w] * (1 - ax) * (1 - ay)
                 + raw[:, :win_h, 1:] * ax * (1 - ay)
@@ -250,7 +258,7 @@ def _lib():
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [
-            p, p, i, i, i, p, p, p, p, p, p,  # tmpl .. status_out
+            p, p, i, i, i, i, p, p, p, p, p, p,  # tmpl .. status_out
             i, i, i, i, i, i, i, f, i, f,  # n .. min_eig_threshold
             i, i, i, i,  # geometry code, warps, k, walk
             p,  # stream
@@ -285,7 +293,9 @@ def lk_level(
     """LK iterations of one pyramid level.
 
     tmpl: (N, 3, win_h, win_w) f32 template image/d/dx/d/dy windows.
-    plane_p: (Hp, Wp) f32 next-frame level plane, padded by `pad`.
+    plane_p: (Hp, Wp) f32 next-frame level plane, padded by `pad`; or
+    (B, Hp, Wp), one per stream, B dividing N: point p reads plane
+    p // (N / B) (points stream-major).
     tl0: (N, 2) f32 initial window top-lefts [x, y] (unpadded).
     crop_org: (N, 2) i32 unpadded crop origins [x, y].
     status0: (N,) bool.
@@ -298,15 +308,18 @@ def lk_level(
     dev = tmpl.device
     n = tmpl.shape[0]
     _check("tmpl", tmpl, torch.float32, (n, 3, win_h, win_w), dev)
-    if plane_p.dim() != 2:
-        raise ValueError(f"plane_p must be 2-D, got shape {tuple(plane_p.shape)}")
+    if plane_p.dim() not in (2, 3):
+        raise ValueError(f"plane_p must be (Hp, Wp) or (B, Hp, Wp), got shape {tuple(plane_p.shape)}")
     _check("plane_p", plane_p, torch.float32, plane_p.shape, dev)
+    nb = plane_p.shape[0] if plane_p.dim() == 3 else 1
+    if nb < 1 or n % nb:
+        raise ValueError(f"{n} points do not split over {nb} planes")
     _check("tl0", tl0, torch.float32, (n, 2), dev)
     _check("crop_org", crop_org, torch.int32, (n, 2), dev)
     _check("status0", status0, torch.bool, (n,), dev)
     if active0 is not None:
         _check("active0", active0, torch.bool, (n,), dev)
-    hp, wp = plane_p.shape
+    hp, wp = plane_p.shape[-2:]
     cw, ch = crop_size(geometry, m, win_w, win_h)
     cw, ch = max(cw, win_w + 1), max(ch, win_h + 1)
     if hp < ch or wp < cw:
@@ -328,7 +341,7 @@ def lk_level(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.lk_level_launch(
-            tmpl.data_ptr(), plane_p.data_ptr(), hp, wp, pad,
+            tmpl.data_ptr(), plane_p.data_ptr(), nb, hp, wp, pad,
             tl0.data_ptr(), crop_org.data_ptr(), status0.data_ptr(),
             None if active0 is None else active0.data_ptr(),
             tl_out.data_ptr(), st_out.data_ptr(),

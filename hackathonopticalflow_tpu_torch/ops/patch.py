@@ -32,19 +32,21 @@ __all__ = [
 
 def extract_patches(img: torch.Tensor, top_left: torch.Tensor, size_h: int, size_w: int) -> torch.Tensor:
     """(N, size_h, size_w) windows of img (H, W) float32 at fractional
-    top-lefts (N, 2) [x, y]. img is padded by the caller so that every
-    window lies inside; out-of-range origins clamp as XLA's dynamic_slice
-    clamps them. CPU tensors take the plain version, CUDA tensors the
-    `patch_bilinear` kernel."""
-    return patch_bilinear(img[None], top_left.contiguous(), size_h, size_w, False)[:, 0]
+    top-lefts (N, 2) [x, y]; img (B, H, W) takes stream-major points (N / B
+    per stream). img is padded by the caller so that every window lies
+    inside; out-of-range origins clamp as XLA's dynamic_slice clamps them.
+    CPU tensors take the plain version, CUDA tensors the `patch_bilinear`
+    kernel."""
+    return patch_bilinear(img.unsqueeze(-3).contiguous(), top_left.contiguous(), size_h, size_w, False)[:, 0]
 
 
 def extract_patches_multi(
     imgs: torch.Tensor, top_left: torch.Tensor, size_h: int, size_w: int, quantize: bool = False
 ) -> torch.Tensor:
     """(N, C, size_h, size_w) windows of a (C, H, W) stack at shared
-    fractional top-lefts; with `quantize`, on the 1/32 W_BITS grid (the
-    JAX package's _fix of the LK templates, fused into the kernel)."""
+    fractional top-lefts, or of a (B, C, H, W) stack per stream at
+    stream-major points; with `quantize`, on the 1/32 W_BITS grid (the JAX
+    package's _fix of the LK templates, fused into the kernel)."""
     return patch_bilinear(imgs.contiguous(), top_left.contiguous(), size_h, size_w, quantize)
 
 
@@ -98,18 +100,21 @@ def extract_grid_templates(
     win_h: int,
     pad: int,
 ) -> torch.Tensor:
-    """planes: (3, Hp, Wp) padded level planes (image, d/dx, d/dy).
+    """planes: (3, Hp, Wp) padded level planes (image, d/dx, d/dy), or
+    (B, 3, Hp, Wp), one stack per stream.
     xs, ys: the grid's full-resolution axis coordinates.
 
     Per point, the window at pts / 2^level - halfwin: rows are blended in
     y first, then columns in x, then quantized to floor(v*32 + 0.5)/32.
-    Returns (Kx*Ky, 3, win_h, win_w), point k = ix*Ky + iy."""
+    Returns (Kx*Ky, 3, win_h, win_w), point k = ix*Ky + iy; with a stream
+    axis (B*Kx*Ky, 3, win_h, win_w), stream-major."""
     ry, fyv, cx, fxv = _template_index(axis_key(xs), axis_key(ys), level, win_w, win_h, pad, planes.device)
-    rows = planes[:, ry, :]  # (3, Ky, win_h+1, Wp)
-    rows = rows[:, :, :win_h, :] * (1 - fyv) + rows[:, :, 1:, :] * fyv
-    cols = rows[..., cx]  # (3, Ky, win_h, Kx, win_w+1)
+    rows = planes[..., ry, :]  # ([B,] 3, Ky, win_h+1, Wp)
+    rows = rows[..., :win_h, :] * (1 - fyv) + rows[..., 1:, :] * fyv
+    cols = rows[..., cx]  # ([B,] 3, Ky, win_h, Kx, win_w+1)
     wnd = cols[..., :win_w] * (1 - fxv) + cols[..., 1:] * fxv
     wnd = torch.floor(wnd * 32.0 + 0.5) * (1.0 / 32.0)
-    # (3, Ky, win_h, Kx, win_w) -> (Kx, Ky, 3, win_h, win_w), x-major
-    out = wnd.permute(3, 1, 0, 2, 4)
+    # ([B,] 3, Ky, win_h, Kx, win_w) -> ([B,] Kx, Ky, 3, win_h, win_w), x-major
+    lead = wnd.dim() - 5
+    out = wnd.permute(*range(lead), lead + 3, lead + 1, lead, lead + 2, lead + 4)
     return out.reshape(-1, 3, win_h, win_w).contiguous()

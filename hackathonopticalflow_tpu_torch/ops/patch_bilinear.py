@@ -17,6 +17,10 @@ per point with top-left (x, y):
   (the JAX package's order, so in-range windows equal JAX's bit for bit);
 - with quantize, OpenCV's W_BITS grid: floor(v * 32 + 0.5) / 32.
 
+A call may carry several streams: planes (B, C, H, W) with the points
+stream-major (stream b's n / B points at rows b*n/B ..), each point
+windowed from its own stream's planes, in one launch.
+
 The kernel rounds every product and sum on its own (-fmad=false), as the
 separate PyTorch ops below do, so the two agree bit for bit.
 """
@@ -62,8 +66,11 @@ def patch_bilinear_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of `patch_bilinear`; same arguments and
     result."""
-    c, hp, wp = planes.shape
+    c, hp, wp = planes.shape[-3:]
     dev = planes.device
+    stack = planes.reshape(-1, c, hp, wp)  # (B, C, Hp, Wp); B = 1 for one stack
+    n = tl.shape[0]
+    stream = (torch.arange(n, device=dev) // max(n // stack.shape[0], 1))[:, None, None, None]
     ip = torch.floor(tl)
     frac = tl - ip
     ipi = torch.clamp(ip, -_MAX_ORIGIN, _MAX_ORIGIN).to(torch.int64)
@@ -71,7 +78,8 @@ def patch_bilinear_reference(
     y0 = slice_start(ipi[:, 1], hp, size_h + 1)
     rows = y0[:, None] + torch.arange(size_h + 1, device=dev)
     cols = x0[:, None] + torch.arange(size_w + 1, device=dev)
-    raw = planes[:, rows[:, :, None], cols[:, None, :]].transpose(0, 1).contiguous()  # (N, C, h+1, w+1)
+    chans = torch.arange(c, device=dev)[None, :, None, None]
+    raw = stack[stream, chans, rows[:, None, :, None], cols[:, None, None, :]]  # (N, C, h+1, w+1)
     out = blend_bilinear(raw, frac, size_h, size_w)
     if quantize:
         out = torch.floor(out * 32.0 + 0.5) * (1.0 / 32.0)
@@ -79,8 +87,8 @@ def patch_bilinear_reference(
 
 
 def _check(planes: torch.Tensor, tl: torch.Tensor, size_h: int, size_w: int) -> None:
-    if planes.dim() != 3:
-        raise ValueError(f"planes must be (C, H, W), got shape {tuple(planes.shape)}")
+    if planes.dim() not in (3, 4):
+        raise ValueError(f"planes must be (C, H, W) or (B, C, H, W), got shape {tuple(planes.shape)}")
     if tl.dim() != 2 or tl.shape[1] != 2:
         raise ValueError(f"tl must be (N, 2), got shape {tuple(tl.shape)}")
     for name, t in (("planes", planes), ("tl", tl)):
@@ -90,7 +98,10 @@ def _check(planes: torch.Tensor, tl: torch.Tensor, size_h: int, size_w: int) -> 
             raise ValueError(f"{name} must be contiguous")
     if tl.device != planes.device:
         raise ValueError(f"tl is on {tl.device}, planes on {planes.device}")
-    c, hp, wp = planes.shape
+    c, hp, wp = planes.shape[-3:]
+    nb = planes.shape[0] if planes.dim() == 4 else 1
+    if nb < 1 or tl.shape[0] % nb:
+        raise ValueError(f"{tl.shape[0]} points do not split over {nb} plane stacks")
     if c < 1 or size_h < 1 or size_w < 1:
         raise ValueError(f"empty window or plane stack: C={c}, {size_h}x{size_w}")
     if hp < size_h + 1 or wp < size_w + 1:
@@ -104,7 +115,7 @@ def _lib():
     fn = lib.patch_bilinear_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
+        fn.argtypes = [p, i, i, i, i, p, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
         occ = lib.patch_bilinear_occupancy
         occ.argtypes = [i, i, p, p, p, p]
@@ -118,6 +129,8 @@ def patch_bilinear(
     """Windows of planes (C, Hp, Wp) float32 at top-lefts tl (N, 2) float32
     [x, y] in the planes' coordinates; returns (N, C, size_h, size_w)
     float32, quantized to the 1/32 grid if `quantize`. All contiguous.
+    Planes (B, C, Hp, Wp), B dividing N: point p is windowed from stack
+    p // (N / B) (points stream-major), in the same one launch.
 
     CPU tensors run `patch_bilinear_reference`; CUDA tensors launch the
     kernel on the current stream (counted in `patch_bilinear.launches`) or
@@ -128,7 +141,8 @@ def patch_bilinear(
         return patch_bilinear_reference(planes, tl, size_h, size_w, quantize)
     if dev.type != "cuda":
         raise ValueError(f"patch_bilinear runs on cpu or cuda tensors, not {dev.type}")
-    c, hp, wp = planes.shape
+    c, hp, wp = planes.shape[-3:]
+    nb = planes.shape[0] if planes.dim() == 4 else 1
     n = tl.shape[0]
     out = torch.empty((n, c, size_h, size_w), dtype=torch.float32, device=dev)
     if n == 0:
@@ -137,7 +151,7 @@ def patch_bilinear(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.patch_bilinear_launch(
-            planes.data_ptr(), c, hp, wp, tl.data_ptr(), n, size_h, size_w,
+            planes.data_ptr(), nb, c, hp, wp, tl.data_ptr(), n, size_h, size_w,
             int(quantize), out.data_ptr(), stream,
         )
     if rc != 0:

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's 1080p sparse scan, 720p dense scan,
-1080p tracker scan, 1080p pathfinder app or 1080p ego-motion geometry, on
-one CUDA GPU.
+1080p tracker scan, 1080p pathfinder app, 1080p ego-motion geometry or
+four-stream 1080p batch runner, on one CUDA GPU.
 
 Run from the repository root:
 
-    python3 profile_torch_scan.py [--path sparse|dense|tracker|app|ego] [--pairs 8] [--out PATH]
+    python3 profile_torch_scan.py [--path sparse|dense|tracker|app|ego|batch] [--pairs 8] [--out PATH]
         [--warp-mode auto|exact|packed|pallas|pallas_bf16|image|hybrid]
 
 Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip:
@@ -18,7 +18,11 @@ default), `farneback_flow_video` at the reference FarnebackParams in
 off, its frames read from host memory (--path app; host API calls are
 also given per chunk) or ego_motion_track's geometry at OdometryConfig()
 on chip_smoke.py's 3D-scene track table of `--pairs` + 1 frames and 256
-slots (--path ego; a frame per pair). It prints:
+slots (--path ego; a frame per pair) or the batch runner's `run_batch`
+at the production params on chip_smoke.py's four phase-21 streams cut to
+`--pairs` + 1 frames, read from host memory (--path batch; a step, 4
+pairs, per pair index; its counts include run_batch's warm-up step, so
+they are given per step of `--pairs` + 1). It prints:
 - the GPU's name and power limit (nvidia-smi);
 - the scan's wall time without the profiler (best of 3) and the device
   time that torch.profiler records over one more scan, so the device's
@@ -37,7 +41,8 @@ slots (--path ego; a frame per pair). It prints:
   clock) and one chunk's device work; ego: select_keyframes, the first
   group of windows' solve (RANSAC chain, triangulation, gate, BA) and,
   for scale, collect_tracks over the zoom clip's first `--pairs` + 1
-  frames.
+  frames; batch: prepare_frame and one step's lk_grid_flow_prepared for
+  the four streams and for one.
 The full profiler tables go to --out (default
 build/profile_torch_scan[_<path>].txt); the last line is the
 summary as one JSON object.
@@ -262,8 +267,37 @@ def ego_setup(dev, pairs: int):
     return scan, stages, "1080p, 256 slots"
 
 
+def batch_setup(dev, pairs: int):
+    """The batch runner's run_batch over four 1080p streams of `pairs` + 1
+    frames (chip_smoke.py phase 21's, cut) and its stage timer."""
+    from chip_smoke import batch_streams
+    from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch
+
+    params = LKParams(grid_step=30, compute_err=False)
+    streams = [f[: pairs + 1] for f in batch_streams(dev)]
+    bgr = {f"stream{i}": ClipReader(f).bgr for i, f in enumerate(streams)}
+    cfg = BatchRunnerConfig(videos=list(bgr), max_frames=pairs + 1, lk=params, device=str(dev),
+                            open_reader=lambda path: ClipReader(bgr[path]))
+    pts = torch.from_numpy(measurement_grid(H, W, params.grid_step)).to(dev)
+
+    def scan():
+        return run_batch(cfg)
+
+    def stages():
+        out = {}
+        for nb in (len(streams), 1):
+            frames = torch.from_numpy(np.stack([f[:2] for f in streams[:nb]], 1)).to(dev)  # (2, nb, H, W)
+            prev, cur = lk_mod.prepare_frame(frames[0], params), lk_mod.prepare_frame(frames[1], params)
+            out[f"prepare_frame B={nb}"] = cuda_ms(lambda: lk_mod.prepare_frame(frames[1], params), 10)
+            out[f"lk_grid_flow_prepared B={nb}"] = cuda_ms(
+                lambda: lk_grid.lk_grid_flow_prepared(prev, cur, pts, params), 10)
+        return out
+
+    return scan, stages, f"{len(streams)} streams x 1080p"
+
+
 SETUPS = {"sparse": sparse_setup, "dense": dense_setup, "tracker": tracker_setup, "app": app_setup,
-          "ego": ego_setup}
+          "ego": ego_setup, "batch": batch_setup}
 
 
 def main() -> int:
@@ -317,6 +351,8 @@ def main() -> int:
     )
     device_ms = sum(dev_us.values()) / 1e3
     launches = sum(n for name, n in api.items() if name.startswith("cudaLaunch"))
+    # per pair; the batch runner's per step, its warm-up step included
+    unit, units = ("step", args.pairs + 1) if args.path == "batch" else ("pair", args.pairs)
     stages = stages_fn()
 
     args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -327,25 +363,25 @@ def main() -> int:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25))
     print(f"{args.path} scan {args.pairs} pairs {size}: wall {wall_ms:.2f} ms unprofiled (best of 3), "
           f"device {device_ms:.3f} ms profiled, busy share {device_ms / wall_ms:.3f}")
-    print("host API calls per pair: "
-          + ", ".join(f"{k} {v / args.pairs:.1f}" for k, v in api.most_common(6)))
+    print(f"host API calls per {unit}: "
+          + ", ".join(f"{k} {v / units:.1f}" for k, v in api.most_common(6)))
     if args.path == "app":
         n_chunks = -(-args.pairs // min(APP_CHUNK, args.pairs))
         print(f"host API calls per chunk ({n_chunks} chunks): "
               + ", ".join(f"{k} {v / n_chunks:.1f}" for k, v in api.most_common(8)))
-    print("device copies per pair: "
-          + (", ".join(f"{k} {v / args.pairs:.1f}" for k, v in copies.most_common()) or "none"))
+    print(f"device copies per {unit}: "
+          + (", ".join(f"{k} {v / units:.1f}" for k, v in copies.most_common()) or "none"))
     print("device time by kind (ms, share): " + ", ".join(
         f"{k} {v / 1e3:.3f} ({v / 1e3 / device_ms:.3f})" for k, v in dev_us.most_common()))
     print("top device ops (ms, share): " + "; ".join(
         f"{k} {v / 1e3:.3f} ({v / 1e3 / device_ms:.3f})" for k, v in op_us.most_common(8)))
-    print("stage times, one pair (ms, CUDA events, mean of 10): "
+    print(f"stage times, one {unit} (ms, CUDA events, mean of 10): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     print(f"profiler tables: {args.out}")
     print(json.dumps({
         "gpu": smi, "path": args.path, **extra, "pairs": args.pairs, "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms,
-        "launches_per_pair": launches / args.pairs, "api_calls": dict(api),
+        f"launches_per_{unit}": launches / units, "api_calls": dict(api),
         "device_copies": dict(copies),
         "device_ms_by_kind": {k: v / 1e3 for k, v in dev_us.items()},
         "top_device_ops_ms": {k: v / 1e3 for k, v in op_us.most_common(8)},

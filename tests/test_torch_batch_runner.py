@@ -1,0 +1,151 @@
+"""The port's batch runner against the JAX package's, on cv2-written clips
+of two streams (9 and 7 frames, so one stream ends first), at LKParams()
+(the exact path, the JAX BatchRunnerConfig's default) in both and the port
+on the CPU. Mirrors tests/test_apps.py's batch-runner tests:
+
+- per-pair danger counts within 2% of the grid's points of JAX's
+  run_batch (the exact path agrees to 1e-3 px, which can flip borderline
+  points); each stream's counts equal its own lk_grid_flow_video scan;
+- total_frames 8 + 6, the ended stream masked;
+- run_batch_staged == run_batch exactly;
+- checkpoint / resume and a double resume keep the "n_steps == index of
+  prev" invariant;
+- device="cuda" without CUDA, and n_devices > 1, raise.
+"""
+
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+cv2 = pytest.importorskip("cv2")
+
+from hackathonopticalflow_tpu.apps.batch_runner import BatchRunnerConfig as JConfig  # noqa: E402
+from hackathonopticalflow_tpu.apps.batch_runner import run_batch as j_run_batch  # noqa: E402
+from hackathonopticalflow_tpu_torch.apps import batch_runner as tbr  # noqa: E402
+from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid  # noqa: E402
+from hackathonopticalflow_tpu_torch.flow.lk_grid import lk_grid_flow_video  # noqa: E402
+from hackathonopticalflow_tpu_torch.io.video import read_frames  # noqa: E402
+
+torch.set_num_threads(1)
+
+H, W = 180, 320
+
+
+def _make_clip(path: str, n: int, seed: int, h: int = H, w: int = W) -> None:
+    """A blurred noise texture as tests/test_apps.py writes it, moved by a
+    seeded random walk of 0-3 px a frame, so each pair's count is its own
+    (a pair out of place shows)."""
+    rng = np.random.RandomState(seed)
+    pad = 3 * n + 8
+    base = cv2.GaussianBlur(rng.uniform(40, 220, (h + pad, w + pad)).astype(np.uint8), (5, 5), 1.5)
+    mover = cv2.GaussianBlur(rng.uniform(40, 220, (h + pad, w + pad)).astype(np.uint8), (5, 5), 1.5)
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (w, h))
+    assert vw.isOpened()
+    cut = int(w * 0.6) // 16 * 16
+    x = y = 4
+    for _ in range(n):
+        f = base[4 : 4 + h, 4 : 4 + w].copy()
+        f[:, cut:] = mover[y : y + h, x + cut : x + w]
+        vw.write(cv2.cvtColor(f, cv2.COLOR_GRAY2BGR))
+        x += int(rng.randint(0, 4))
+        y += int(rng.randint(0, 2))
+    vw.release()
+
+
+def _clips(tmp_path, lengths, seed0=7):
+    paths = []
+    for i, n in enumerate(lengths):
+        p = str(tmp_path / f"clip{i}.mp4")
+        _make_clip(p, n, seed0 + i)
+        paths.append(p)
+    return paths
+
+
+@pytest.fixture(scope="module")
+def clips(tmp_path_factory):
+    return _clips(tmp_path_factory.mktemp("clips"), (9, 7))
+
+
+def _cfg(videos, **kw):
+    return tbr.BatchRunnerConfig(videos=videos, lk=LKParams(), device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def streaming(clips):
+    return tbr.run_batch(_cfg(clips))
+
+
+def test_counts_match_jax(clips, streaming):
+    want = j_run_batch(JConfig(videos=clips))
+    n_pts = len(measurement_grid(H, W, 30))
+    assert [len(c) for c in streaming["danger_counts"]] == [len(c) for c in want["danger_counts"]] == [8, 6]
+    for got, ref in zip(streaming["danger_counts"], want["danger_counts"]):
+        assert np.abs(np.array(got) - np.array(ref)).max() <= 0.02 * n_pts
+    assert streaming["first_step"] == want["first_step"] == 0
+    assert streaming["steps"] == want["steps"] == 8
+
+
+def test_streams_equal_their_own_scans(clips, streaming):
+    """Batched, each stream's counts are its own clip scan's `good` sums;
+    the ended stream is masked (6 counts, not 8)."""
+    pts = torch.from_numpy(measurement_grid(H, W, 30))
+    for path, got in zip(clips, streaming["danger_counts"]):
+        frames = np.stack(read_frames(path, range(len(got) + 1), gray=True))
+        want = lk_grid_flow_video(torch.from_numpy(frames), pts, lk=LKParams(), device="cpu")
+        assert got == want.good.sum(1).tolist()
+    assert streaming["total_frames"] == 8 + 6 and streaming["streams"] == 2 and streaming["devices"] == 1
+    assert streaming["mean_danger_per_stream"] == [float(np.mean(c)) for c in streaming["danger_counts"]]
+
+
+def test_staged_equals_streaming(clips, streaming, monkeypatch):
+    # chunks of 3 pairs: several chunks per stream, their one-frame
+    # overlaps and a padded tail
+    monkeypatch.setattr(tbr, "STAGED_CHUNK", 3)
+    staged = tbr.run_batch_staged(_cfg(clips), reps=1)
+    assert staged["danger_counts"] == streaming["danger_counts"]
+    assert staged["total_frames"] == streaming["total_frames"] == 8 + 6
+
+
+def test_checkpoint_resume(tmp_path):
+    videos = _clips(tmp_path, (9, 9), seed0=3)
+    full = tbr.run_batch(_cfg(videos, max_frames=8))
+    ck = str(tmp_path / "br.ckpt.npz")
+    part1 = tbr.run_batch(_cfg(videos, max_frames=4, checkpoint_path=ck, checkpoint_every=2))
+    assert part1["steps"] == 3  # the checkpoint landed at step 2
+    part2 = tbr.run_batch(_cfg(videos, max_frames=8, checkpoint_path=ck, checkpoint_every=2))
+    assert part2["first_step"] == 3
+    for i in range(2):
+        assert part1["danger_counts"][i] == full["danger_counts"][i][:3]
+        assert part2["danger_counts"][i] == full["danger_counts"][i][2:]
+
+
+def test_double_resume(tmp_path):
+    """A crash after a resume: the resumed run's checkpoints keep the
+    n_steps == prev-frame-index invariant, so a second resume neither
+    skips nor repeats a frame."""
+    videos = _clips(tmp_path, (12, 12), seed0=11)
+    full = tbr.run_batch(_cfg(videos, max_frames=11))
+    assert any(len(set(c)) > 1 for c in full["danger_counts"])
+    ck = str(tmp_path / "br2.ckpt.npz")
+    kw = dict(checkpoint_path=ck, checkpoint_every=2)
+    part1 = tbr.run_batch(_cfg(videos, max_frames=4, **kw))
+    part2 = tbr.run_batch(_cfg(videos, max_frames=7, **kw))  # first resume
+    part3 = tbr.run_batch(_cfg(videos, max_frames=11, **kw))  # second resume
+    assert part2["first_step"] == 3
+    assert part3["first_step"] == 7
+    for i in range(2):
+        assert part1["danger_counts"][i] == full["danger_counts"][i][:3]
+        assert part2["danger_counts"][i] == full["danger_counts"][i][2:6]
+        assert part3["danger_counts"][i] == full["danger_counts"][i][6:10]
+
+
+def test_cuda_without_cuda_and_several_devices_raise(clips):
+    with mock.patch.object(torch.cuda, "is_available", return_value=False):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tbr.run_batch(tbr.BatchRunnerConfig(videos=clips))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tbr.run_batch_staged(tbr.BatchRunnerConfig(videos=clips))
+    with pytest.raises(ValueError, match="item 8"):
+        tbr.run_batch(_cfg(clips, n_devices=2))

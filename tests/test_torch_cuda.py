@@ -393,3 +393,85 @@ def test_patch_bilinear_window45_kernel_matches_plain(cuda_device, c, quantize):
     torch.cuda.synchronize()
     assert patch_bilinear.launches == before + 1
     assert torch.equal(got, patch_bilinear_reference(planes, tl, 45, 45, quantize))
+
+
+# one LK configuration per lk_level geometry at the 45 x 45 window, for
+# the stream-batched calls
+BATCH_GEOMETRIES = {
+    "centred": PARAMS,
+    "anchored": dataclasses.replace(PARAMS, grid_kernel="blocked"),
+    "v1": LKParams(slab_margin=8, compute_err=False),
+    "exact": LKParams(compute_err=False),
+}
+
+
+def _stream_frames(dev, b):
+    """(2, b, 270, 480) u8: stream s moves by its own (dx, dy)."""
+    shifts = [(5, 3), (-4, 2), (7, -1), (1, 6)][:b]
+    out = [np.stack(_frames(2, dx=dx, dy=dy)) for dx, dy in shifts]
+    return torch.from_numpy(np.stack(out, 1)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("geometry", sorted(BATCH_GEOMETRIES))
+def test_lk_level_stream_batched_kernel_matches_plain(cuda_device, geometry, b):
+    """A stream axis of b planes in every geometry, one launch per level for
+    all streams: identical to the plain version at every level, and each
+    stream's rows identical to the unbatched call on its own plane."""
+    params = BATCH_GEOMETRIES[geometry]
+    frames = _stream_frames(cuda_device, b)
+    pts_np = measurement_grid(270, 480, 30) if params.grid_step else tracker_points(270, 480, 256)
+    pts = torch.from_numpy(pts_np).to(cuda_device)
+    n = pts.shape[0]
+    grid_xy = (np.unique(pts_np[:, 0]).astype(int), np.unique(pts_np[:, 1]).astype(int))
+    prev, nxt = tlk.prepare_frame(frames[1], params), tlk.prepare_frame(frames[0], params)
+    singles = [(tlk.prepare_frame(frames[1, s], params), tlk.prepare_frame(frames[0, s], params)) for s in range(b)]
+
+    def inputs(p, q, points, center, level):
+        if params.grid_step is not None:
+            return tlk.level_inputs(p, q, grid_xy, center, level, params)
+        args, kw, _ = tlk.point_level_inputs(p, q, points, center, level, params)
+        return args, kw
+
+    center = pts.repeat(b, 1) * 0.25
+    status = torch.ones(b * n, dtype=torch.bool, device=cuda_device)
+    for level in (2, 1, 0):
+        if level != 2:
+            center = center * 2.0
+        args, kw = inputs(prev, nxt, pts.repeat(b, 1), center, level)
+        assert args[1].shape[0] == b and kw["geometry"] in (geometry, "centred")
+        before = lk_level.launches
+        tl_k, st_k = lk_level(*args, status, **kw)
+        torch.cuda.synchronize()
+        assert lk_level.launches == before + 1
+        tl_p, st_p = lk_level_reference(*args, status, **kw)
+        assert torch.equal(st_k, st_p), level
+        assert torch.equal(tl_k, tl_p), level
+        for s, (p1, q1) in enumerate(singles):
+            rows = slice(s * n, (s + 1) * n)
+            a1, kw1 = inputs(p1, q1, pts, center[rows], level)
+            tl1, st1 = lk_level(*a1, status[rows], **kw1)
+            assert torch.equal(tl1, tl_k[rows]) and torch.equal(st1, st_k[rows]), (level, s)
+        center, status = tl_p + tlk._halfwin(params, cuda_device), st_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("c", [3, 1])
+def test_patch_bilinear_stream_batched_kernel_matches_plain(cuda_device, c, b):
+    """(b, C, Hp, Wp) stacks and stream-major points at the exact scan's
+    window (45 x 45), origins off the plane included, in one launch:
+    identical to the plain version and, per stream, to the unbatched
+    call."""
+    rng = np.random.RandomState(45 + c + b)
+    planes = torch.from_numpy(rng.uniform(0, 255, (b, c, 300, 500)).astype(np.float32)).to(cuda_device)
+    tl = torch.from_numpy(rng.uniform(-80, 580, (b * 576, 2)).astype(np.float32)).to(cuda_device)
+    before = patch_bilinear.launches
+    got = patch_bilinear(planes, tl, 45, 45, True)
+    torch.cuda.synchronize()
+    assert patch_bilinear.launches == before + 1
+    assert torch.equal(got, patch_bilinear_reference(planes, tl, 45, 45, True))
+    for s in range(b):
+        rows = slice(s * 576, (s + 1) * 576)
+        assert torch.equal(got[rows], patch_bilinear(planes[s], tl[rows].contiguous(), 45, 45, True))

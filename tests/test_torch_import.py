@@ -25,7 +25,8 @@ assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.fea
         "ops.patch_bilinear", "flow.tracker", "ops.gather_rects", "apps.pathfinder", "nav.danger",
         "ops.color", "io.prefetch", "io.native_lib", "viz.layers", "utils.checkpoint", "nav.camera",
         "nav.foe", "nav.metrics", "nav.pose", "nav.ba", "nav.odometry", "apps.tracker_app",
-        "apps.dense_viewer"} <= names, names
+        "apps.dense_viewer", "apps.batch_runner", "io.tools", "viz.plotter", "utils.profiling",
+        "entry"} <= names, names
 from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
@@ -93,6 +94,15 @@ tracked = TrackerApp(TrackerAppConfig(video="clip", params=params, max_frames=4,
                      open_reader=lambda path: ClipReader(gray)).run()
 assert tracked["frames"] == 4 and len(tracked["poses"]) <= 3
 assert patch_bilinear.launches == 0 and lk_level.launches == 0
+
+from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch, run_batch_staged
+streams = {"a": gray, "b": gray[:3]}
+cfg = BatchRunnerConfig(videos=["a", "b"], lk=LKParams(grid_step=30, compute_err=False), device="cpu",
+                        open_reader=lambda path: ClipReader(streams[path]))
+stats = run_batch(cfg)
+assert stats["danger_counts"] == [batched["danger_counts"], batched["danger_counts"][:2]]
+assert run_batch_staged(cfg, reps=1)["danger_counts"] == stats["danger_counts"]
+assert lk_level.launches == 0
 assert blocked_mods() <= before
 print("OK")
 """
