@@ -4,8 +4,9 @@ configurations: the blocked grid kernel, the lanes kernel without a
 rescue, the exact path), its dense Farneback path (in every warp mode),
 its Shi-Tomasi + forward-backward LK tracker, its pathfinder app, its
 ego-motion (tracker -> keyframe windows -> BA), its tracker app, its
-dense viewer and its batch runner (four streams, one stream-batched step
-per frame index) once on one GPU.
+dense viewer, its batch runner (four streams, one stream-batched step
+per frame index) and its multi-rank layer (worlds of ranks on the one
+GPU) once on one GPU.
 
 Run from the repository root, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
@@ -129,7 +130,30 @@ Phases, in order; any failure exits non-zero:
     plain versions, and at B = 1 to the unbatched call, with their device
     times at B = 1 and 4 beside the bound; aggregate pairs/s of both runs
     beside phase 5's single-stream scan, kernel launches and syncs per
-    step; entry() once at 720p, finite.
+    step; entry() once at 720p, finite;
+22. the multi-rank layer (parallel/) with four gloo ranks sharing cuda:0
+    (parallel/mesh.py::run_on_mesh; every collective staged through
+    pinned host memory): (a) tiled_farneback_multi of two 720p zoom
+    streams on a (2, 2) mesh, 360-row tiles and derive_halo's 142 rows,
+    in "exact" and "pallas", within TOL_TILE_EPE_PX of each stream's
+    single-rank farneback over the core rows (bit-identity printed); (b)
+    stream_batched_grid_flow of four 1080p zoom streams, one a rank, at
+    the production and the exact LKParams, identical to each stream's
+    lk_grid_flow; (c) distributed_bundle_adjust (256 landmarks, 64 a rank)
+    and ring_bundle_adjust (4 keyframes, one a rank) on the first window
+    of scene_table()'s 3D scene, within tests/test_pose_ba.py's bounds of
+    bundle_adjust, the poses identical on every rank; (d)
+    halo_exchange_rows of a 1080p frame in every mode equal to the padded
+    frame's rows, the q99 psum-histogram quantile equal on a stream's
+    ranks; (e) run_batch(n_devices=4) on phase 21's streams, counts equal
+    to phase 21's; (f) dryrun_multichip(4, backend="gloo"). Each step's
+    wall time beside the single-rank time of the same work in this call
+    (four ranks on one GPU: overhead, not scaling), the halo bytes per
+    exchange and each step's kernel launches;
+23. a world of one NCCL rank (every collective a real NCCL call, the
+    halo ring a self-permutation): 22's (a)-(c) on 1 x 1 and (1,) meshes,
+    the grid flow and the distributed BA identical to the single-device
+    functions, the tiled flow and the ring BA within 22's bounds.
 
 Each kernel's record carries its device time per shape of the main paths
 (shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
@@ -2017,6 +2041,7 @@ def batch_phase(dev, scan_fps: float) -> dict:
         raise SystemExit("entry() gave non-finite values")
     return {
         "kernels": kernels,
+        "batch_counts": counts,
         "batch_launches": (launches, ex_launches),
         "batch_pairs_per_s": fps,
         "batch_staged_pairs_per_s": staged_fps,
@@ -2024,6 +2049,434 @@ def batch_phase(dev, scan_fps: float) -> dict:
         "batch_single_stream_scan_fps": scan1_fps,
         "batch_launches_per_step": calls / per,
         "batch_syncs_per_step": {k: v / per for k, v in syncs.items()},
+    }
+
+
+def ba_window_state(dev):
+    """The first keyframe window of scene_table()'s 3D scene at
+    OdometryConfig() (its 4 keyframes, its 256 slots as landmarks) as
+    nav/odometry.py's batched window solve starts it: the unit-step
+    essential chain, the DLT landmarks and the reprojection gate, on
+    `dev`. Returns (BAState, the resolved config)."""
+    from hackathonopticalflow_tpu_torch.nav import odometry as odo
+    from hackathonopticalflow_tpu_torch.nav.ba import BAState
+    from hackathonopticalflow_tpu_torch.nav.camera import Pinhole
+
+    scene, _ = scene_table(h=H, w=W)
+    table = odo.TrackTable(*scene)
+    cam = Pinhole.from_fov(W, H, 155.0)
+    cfg = odo.resolve_config(odo.OdometryConfig(), cam)
+    kf = odo.select_keyframes(table, cam, cfg, dev)[: cfg.window]
+    pos, mask = odo.build_window(table, kf, cfg)
+    obs = cam.normalize(pos).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    rv, tv, points = odo._init_chain_core(obs, mask, cfg.inlier_thresh)
+    ok = odo._reproj_mask(points, rv, tv, obs, mask, cfg)
+    return BAState(rvecs=rv, tvecs=tv, points=points, obs=obs, mask=ok), cfg
+
+
+MESH_RANKS = 4  # phase 22: gloo ranks sharing cuda:0
+MESH_TIMEOUT_S = 600.0  # a world's deadline: past it every rank is killed and the run fails
+TILE_SEEDS = (0, 1)  # phase 22(a)'s two 720p zoom streams
+TOL_TILE_EPE_PX = 1e-3  # tiled against single-rank Farneback over the core rows
+SHARED = "ranks sharing one GPU: times measure overhead, not scaling"
+
+
+def _launch_counts() -> dict:
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
+
+    return {"lk_level": lk_level.launches, "warp_bilinear": warp_bilinear.launches,
+            "patch_bilinear": patch_bilinear.launches}
+
+
+def _zero_launch_counts() -> None:
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
+
+    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_rank(dev, inp: dict) -> dict:
+    """One rank of phases 22 and 23 (a world of inp["n"] ranks, started by
+    parallel/mesh.py::run_on_mesh). Each step runs once to warm up (index
+    caches), then once with the launch counts set to 0 and its time taken
+    between a barrier and a synchronize; results come back on the CPU:
+    (a) tiled_farneback_multi on an inp["tile_mesh"] (stream, tile) mesh,
+        FarnebackParams() in "exact" and "pallas", halo inp["halo"];
+    (b) stream_batched_grid_flow over an (n,) 'stream' mesh at the
+        production and the exact LKParams;
+    (c) distributed_bundle_adjust and ring_bundle_adjust over an (n,) 'win'
+        mesh;
+    (d) (with "halo" in inp) halo_exchange_rows of a frame's row block in
+        every mode, held here against the padded frame, and the q99
+        psum-histogram quantile of (a)'s exact flow over the tile axis;
+    (e) (with "batch" in inp) run_batch with n_devices=n, each rank making
+        its own streams (make_clip);
+    (f) (with "dryrun" in inp) the flow paths of dryrun_multichip(n) on
+        its own mesh (entry.py::_dryrun_flow).
+    Steps (a), (b) and (f) run once more with every kernel replaced by its
+    plain version (the collectives unchanged); out["plain equal"] says
+    whether each step's result is identical (torch.equal) to the kernels'."""
+    import torch.distributed as dist
+
+    from hackathonopticalflow_tpu_torch import entry
+    from hackathonopticalflow_tpu_torch import parallel as par
+    from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch
+    from hackathonopticalflow_tpu_torch.core import FarnebackParams, LKParams
+    from hackathonopticalflow_tpu_torch.nav.ba import BAState
+    from hackathonopticalflow_tpu_torch.ops import farneback as fb
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level_reference
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear_reference
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear_reference
+
+    n = inp["n"]
+    out = {"seconds": {}, "launches": {}, "plain equal": {}}
+
+    def plain(fn):
+        with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference), \
+                mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+                mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
+            return fn()
+
+    def equal(a, b) -> bool:
+        if isinstance(a, torch.Tensor):
+            return bool(torch.equal(a.cpu(), b.cpu()))
+        return all(equal(x, y) for x, y in zip(a, b))
+
+    def step(name, fn):
+        fn()
+        dist.barrier()
+        _sync(dev)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = _launch_counts()
+        return res
+
+    grid = par.stream_tile_mesh(*inp["tile_mesh"], dev)
+    prev, nxt = (par.shard_rows(par.shard_rows(torch.from_numpy(f), grid, "stream"), grid, "tile", 1)
+                 for f in inp["dense"])
+    tile = par.TileConfig(halo=inp["halo"])
+    for mode in ("exact", "pallas"):
+        params = FarnebackParams(warp_mode=mode)
+        run = lambda: par.tiled_farneback_multi(prev, nxt, grid, params, tile)  # noqa: E731
+        out[f"tiled {mode}"] = step(f"tiled {mode}", run).cpu()
+        out["plain equal"][f"tiled {mode}"] = equal(out[f"tiled {mode}"], plain(run))
+    out["grid coords"] = (grid.axis("stream").index, grid.axis("tile").index)
+
+    streams = par.make_mesh((n,), ("stream",), dev)
+    a, b = (par.shard_rows(torch.from_numpy(f), streams, "stream") for f in inp["sparse"])
+    pts = torch.from_numpy(inp["pts"])
+    for name, lk in (("production", LKParams(grid_step=30, compute_err=False)), ("exact", LKParams())):
+        run = lambda: par.stream_batched_grid_flow(a, b, pts, streams, lk=lk)  # noqa: E731
+        res = step(f"grid {name}", run)
+        out[f"grid {name}"] = type(res)(*(f.cpu() for f in res))
+        out["plain equal"][f"grid {name}"] = equal(res, plain(run))
+
+    flat = par.make_mesh((n,), ("win",), dev)
+    state = BAState(*map(torch.from_numpy, inp["ba"]))
+    for name, fn, shard in (("ba_dist", par.distributed_bundle_adjust, par.shard_landmarks),
+                            ("ba_ring", par.ring_bundle_adjust, par.shard_keyframes)):
+        local = shard(state, flat, "win")
+        st, stats = step(name, lambda: fn(local, flat, "win", iters=inp["ba_iters"], lam=inp["ba_lambda"]))
+        out[name] = (st.rvecs.cpu(), st.tvecs.cpu(), st.points.cpu(), type(stats)(*(x.cpu() for x in stats)))
+
+    if "halo" in inp["steps"]:
+        tiles = par.make_mesh((n,), ("tile",), dev)
+        frame = torch.from_numpy(inp["halo_frame"]).to(dev)
+        block = par.shard_rows(frame, tiles, "tile")
+        h, rows, r = inp["halo"], block.shape[0], tiles.axis("tile").index
+        pads = {"edge": "replicate", "reflect": "reflect", "constant": "constant"}
+        out["halo equal"] = {}
+        for mode, pad in pads.items():
+            got = step(f"halo {mode}", lambda: par.halo_exchange_rows(block, h, tiles, "tile", mode))
+            padded = torch.nn.functional.pad(frame[None, None], (0, 0, h, h), mode=pad)[0, 0]
+            out["halo equal"][mode] = bool(torch.equal(got, padded[r * rows : r * rows + rows + 2 * h]))
+        out["halo bytes per exchange"] = 2 * h * block[0].numel() * block.element_size()
+        mag = torch.linalg.vector_norm(out["tiled exact"].to(dev), dim=-1)
+        out["q99"] = float(par.psum_histogram_quantile(mag, 99.0, grid, "tile", 0.0, 64.0))
+
+    if "batch" in inp["steps"]:
+        specs = inp["batch"]
+
+        def reader(path):
+            i = int(path[len("stream"):])
+            return ClipReader(make_clip(dev, H, W, specs[i][0], seed=i, zoom=specs[i][1]).cpu().numpy())
+
+        cfg = BatchRunnerConfig(videos=[f"stream{i}" for i in range(len(specs))], n_devices=n, device=str(dev),
+                                lk=LKParams(grid_step=30, compute_err=False), open_reader=reader)
+        dist.barrier()
+        _zero_launch_counts()
+        out["run_batch"] = run_batch(cfg)
+        out["launches"]["run_batch"] = _launch_counts()
+
+    if "dryrun" in inp["steps"]:
+        dry_mesh = entry._dryrun_mesh(dev, n)
+        run = lambda: entry._dryrun_flow(dry_mesh, np.random.RandomState(0))  # noqa: E731
+        out["plain equal"]["dryrun flow"] = equal(run(), plain(run))
+    return out
+
+
+def hist_quantile(x: torch.Tensor, q: float, lo: float, hi: float, bins: int = 4096) -> torch.Tensor:
+    """The centre of the first of `bins` bins over [lo, hi] whose
+    cumulative count reaches q% of the values: psum_histogram_quantile in
+    one process."""
+    xc = torch.clamp(x.reshape(-1).to(torch.float32), lo, hi)
+    idx = torch.clamp(((xc - lo) / (hi - lo) * bins).to(torch.int64), 0, bins - 1)
+    cdf = torch.cumsum(torch.bincount(idx, minlength=bins), 0)
+    target = q / 100.0 * cdf[-1].to(torch.float32)
+    i = int(torch.clamp(torch.searchsorted(cdf.to(torch.float32), target[None]), 0, bins - 1)[0])
+    return lo + (i + 0.5) * (hi - lo) / bins
+
+
+def _max_epe(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a.double() - b.double(), dim=-1).max())
+
+
+def _ba_within(got, want, observed: torch.Tensor) -> tuple[bool, str]:
+    """tests/test_pose_ba.py's bounds: rvecs and tvecs 1e-4, points 1e-3
+    (the observed landmarks; a landmark no keyframe sees keeps the DLT's
+    degenerate ~1e9 value, held to 1e-5 relative), cost 1e-3 relative,
+    n_obs equal."""
+    (rv, tv, pts, st), (rv_w, tv_w, pts_w, st_w) = got, want
+    d_rv = float((rv - rv_w).abs().max())
+    d_tv = float((tv - tv_w).abs().max())
+    d_pts = float((pts - pts_w)[observed].abs().max())
+    rel_unobs = float(((pts - pts_w)[~observed].abs() / pts_w[~observed].abs().clamp(min=1.0)).max()) \
+        if bool((~observed).any()) else 0.0
+    d_cost = abs(float(st.cost) - float(st_w.cost)) / max(float(st_w.cost), 1.0)
+    ok = (d_rv <= 1e-4 and d_tv <= 1e-4 and d_pts <= 1e-3 and rel_unobs <= 1e-5 and d_cost <= 1e-3
+          and int(st.n_obs) == int(st_w.n_obs))
+    return ok, (f"|d rvecs| {d_rv:.3g}, |d tvecs| {d_tv:.3g}, |d points| {d_pts:.3g} (unobserved rel "
+                f"{rel_unobs:.3g}), cost rel {d_cost:.3g}, n_obs {int(st.n_obs)} / {int(st_w.n_obs)}")
+
+
+def parallel_phases(dev, batch_counts: list, batch_fps: float) -> dict:
+    """Phases 22 and 23: the multi-rank layer (parallel/) on the GPU.
+
+    22: a world of MESH_RANKS gloo ranks, each on cuda:0 (mesh_rank, steps
+    (a)-(e)): (a) two 720p zoom streams tiled (2, 2), 360-row tiles with
+    derive_halo's 142 rows (644-row slabs), "exact" and "pallas", against
+    each stream's single-rank farneback over the core rows (at least the
+    halo from the frame's top and bottom): max EPE <= TOL_TILE_EPE_PX,
+    bit-identity printed; (b) four 1080p zoom streams, one a rank, equal
+    (torch.equal) to each stream's lk_grid_flow at the production and the
+    exact LKParams; (c) both BAs on ba_window_state() (256 landmarks, 64 a
+    rank; 4 keyframes, one a rank) within tests/test_pose_ba.py's bounds
+    of bundle_adjust, the replicated poses identical on every rank; (d)
+    halo_exchange_rows of a 1080p frame in every mode equal to the padded
+    frame's rows, the q99 histogram quantile of each rank equal to one
+    process's over its stream's assembled flow; (e) run_batch(n_devices=4) on phase 21's four streams, counts
+    equal to phase 21's; (f) dryrun_multichip(4)'s flow paths on the
+    world's ranks. (a), (b) and (f) are held, rank by rank, against a
+    rerun through the kernels' plain versions (torch.equal). Then
+    dryrun_multichip(4, backend="gloo").
+    Each step's wall time beside the single-rank time of the same work.
+    23: a world of one NCCL rank, steps (a)-(c) on 1 x 1 and (1,) meshes,
+    every collective a real NCCL call and the halo's ring a
+    self-permutation: (b) and the distributed BA identical to the
+    single-device functions, (a) and the ring BA as in 22."""
+    from hackathonopticalflow_tpu_torch import parallel as par
+    from hackathonopticalflow_tpu_torch.core import FarnebackParams, LKParams, measurement_grid
+    from hackathonopticalflow_tpu_torch.entry import dryrun_multichip
+    from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow
+    from hackathonopticalflow_tpu_torch.flow.lk_grid import lk_grid_flow
+    from hackathonopticalflow_tpu_torch.nav.ba import bundle_adjust
+
+    halo = par.derive_halo(FarnebackParams())
+    dense = [make_clip(dev, DENSE_H, DENSE_W, 2, DENSE_CELL, seed=s) for s in TILE_SEEDS]
+    dense_prev, dense_next = torch.stack([c[0] for c in dense]), torch.stack([c[1] for c in dense])
+    sparse = [make_clip(dev, H, W, 2, seed=i, zoom=z) for i, z in enumerate(BATCH_ZOOMS)]
+    sparse_prev, sparse_next = torch.stack([c[0] for c in sparse]), torch.stack([c[1] for c in sparse])
+    pts_np = measurement_grid(H, W, 30)
+    pts = torch.from_numpy(pts_np).to(dev)
+    state, cfg = ba_window_state(dev)
+    observed = state.mask.any(0).cpu()
+    inp = {
+        "dense": (dense_prev.cpu().numpy(), dense_next.cpu().numpy()),
+        "halo": halo,
+        "sparse": (sparse_prev.cpu().numpy(), sparse_next.cpu().numpy()),
+        "pts": pts_np,
+        "ba": tuple(x.cpu().numpy() for x in state),
+        "ba_iters": cfg.ba_iters,
+        "ba_lambda": cfg.ba_lambda,
+        "halo_frame": sparse[0][0].float().cpu().numpy(),
+        "batch": list(zip(BATCH_LENGTHS, BATCH_ZOOMS)),
+    }
+
+    # the single-rank references and their times, warmed up first
+    single = {}
+    single_s = {}
+
+    def timed(name, fn):
+        fn()
+        single_s[name] = host_seconds(lambda: single.__setitem__(name, fn()))
+
+    lks = {"production": LKParams(grid_step=30, compute_err=False), "exact": LKParams()}
+    for mode in ("exact", "pallas"):
+        timed(f"tiled {mode}", lambda: farneback_flow(dense_prev, dense_next, FarnebackParams(warp_mode=mode),
+                                                      device=dev))
+    for name, lk in lks.items():
+        timed(f"grid {name}", lambda: lk_grid_flow(sparse_prev, sparse_next, pts, lk=lk, device=dev))
+    timed("ba", lambda: bundle_adjust(state, iters=cfg.ba_iters, lam=cfg.ba_lambda))
+    per_stream = {name: [lk_grid_flow(sparse_prev[i], sparse_next[i], pts, lk=lk, device=dev)
+                         for i in range(len(sparse))] for name, lk in lks.items()}
+    ba_single = single["ba"]
+    ba_want = (ba_single[0].rvecs.cpu(), ba_single[0].tvecs.cpu(), ba_single[0].points.cpu(),
+               type(ba_single[1])(*(x.cpu() for x in ba_single[1])))
+    core = slice(halo, DENSE_H - halo)
+
+    def check_world(label, ranks, grid_shape, exact_ba_dist, note):
+        """Phase 22 / 23's comparisons of steps (a)-(c), (d)'s quantile and
+        every kernel step against its plain rerun."""
+        ns, nt = grid_shape
+        res = {"max_epe": {}, "bit_identical": {}, "seconds": {}, "single_seconds": {}}
+        plain_ok = {k: all(r["plain equal"][k] for r in ranks) for k in ranks[0]["plain equal"]}
+        log(f"{label} each rank's kernel steps identical to their rerun through the plain versions (warp_bilinear, "
+            f"lk_level, patch_bilinear at the ranks' slab and stream shapes): {plain_ok}")
+        if not all(plain_ok.values()):
+            raise SystemExit(f"{label}: a kernel disagrees with its plain version on the ranks' inputs")
+        for mode in ("exact", "pallas"):
+            key = f"tiled {mode}"
+            flows = torch.stack([torch.cat([ranks[s * nt + t][key] for t in range(nt)], dim=-3)
+                                 for s in range(ns)]).reshape(len(TILE_SEEDS), DENSE_H, DENSE_W, 2)
+            want = single[key].cpu()
+            epe = _max_epe(flows[:, core], want[:, core])
+            same = bool(torch.equal(flows[:, core], want[:, core]))
+            res["max_epe"][mode], res["bit_identical"][mode] = epe, same
+            # each rank sends two halo-row strips of each frame of the pair
+            pair_bytes = 2 * 2 * halo * (len(TILE_SEEDS) // ns) * DENSE_W * dense_prev.element_size()
+            log(f"{label} (a) tiled_farneback_multi {mode}, {ns} x {nt} mesh, {DENSE_H // nt}-row tiles, halo "
+                f"{halo} ({DENSE_H // nt + 2 * halo}-row slabs, {pair_bytes} halo bytes sent per rank per "
+                f"frame pair): core rows "
+                f"{halo}-{DENSE_H - halo} max EPE {epe:.3g} px against single-rank farneback "
+                f"(<= {TOL_TILE_EPE_PX}); bit-identical {same}; warp_bilinear launches per rank "
+                f"{[r['launches'][key]['warp_bilinear'] for r in ranks]}")
+            if not epe <= TOL_TILE_EPE_PX:
+                raise SystemExit(f"{label}: tiled Farneback ({mode}) disagrees with the single rank")
+            if mode == "exact" and "q99" in ranks[0]:
+                # (d): psum_histogram_quantile's 4096 bins over [0, 64] of
+                # each stream's whole tiled flow, in one process
+                mags = [torch.linalg.vector_norm(f.to(dev), dim=-1) for f in flows]
+                want_q = [float(hist_quantile(m, 99.0, 0.0, 64.0)) for m in mags]
+                got_q = [[ranks[s * nt + t]["q99"] for t in range(nt)] for s in range(ns)]
+                exact_q = [float(torch.quantile(m.reshape(-1).double(), 0.99)) for m in mags]
+                same_q = all(q == w for qs, w in zip(got_q, want_q) for q in qs)
+                log(f"{label} (d) q99 of the tiled flow magnitudes, psum_histogram_quantile over the tile axis per "
+                    f"rank {got_q}; one process over each stream's assembled flow {want_q}: equal {same_q} "
+                    f"(torch.quantile {exact_q}, bin width {64.0 / 4096})")
+                if not same_q:
+                    raise SystemExit(f"{label}: the psum histogram quantile disagrees with one process's")
+        for name in lks:
+            key = f"grid {name}"
+            per = len(sparse) // len(ranks)
+            same = all(torch.equal(getattr(ranks[i // per][key], f)[i % per], getattr(per_stream[name][i], f).cpu())
+                       for i in range(len(sparse)) for f in per_stream[name][i]._fields)
+            res["bit_identical"][key] = same
+            log(f"{label} (b) stream_batched_grid_flow {name}, {len(sparse)} x {H}p streams, {per} a rank: identical "
+                f"to each stream's lk_grid_flow {same}; lk_level / patch_bilinear launches per rank "
+                f"{[(r['launches'][key]['lk_level'], r['launches'][key]['patch_bilinear']) for r in ranks]}")
+            if not same:
+                raise SystemExit(f"{label}: stream-sharded grid flow disagrees with the single stream")
+        for name in ("ba_dist", "ba_ring"):
+            rv0, tv0 = ranks[0][name][:2]
+            replicated = all(torch.equal(r[name][0], rv0) and torch.equal(r[name][1], tv0) for r in ranks)
+            pts_all = torch.cat([r[name][2] for r in ranks]) if name == "ba_dist" else ranks[0][name][2]
+            got = (rv0, tv0, pts_all, ranks[0][name][3])
+            ok, msg = _ba_within(got, ba_want, observed)
+            same = all(torch.equal(x, y) for x, y in zip(got[:3], ba_want[:3]))
+            res["bit_identical"][name] = same
+            log(f"{label} (c) {name} ({state.points.shape[0]} landmarks, {state.rvecs.shape[0]} keyframes over "
+                f"{len(ranks)} ranks, {cfg.ba_iters} iterations): cost {float(got[3].initial_cost):.4g} -> "
+                f"{float(got[3].cost):.4g}; against bundle_adjust: {msg}; identical {same}; poses identical on "
+                f"every rank {replicated}")
+            if not ok or not replicated or (exact_ba_dist and name == "ba_dist" and not same):
+                raise SystemExit(f"{label}: {name} disagrees with bundle_adjust")
+        for key in ("tiled exact", "tiled pallas", "grid production", "grid exact", "ba_dist", "ba_ring"):
+            res["seconds"][key] = max(r["seconds"][key] for r in ranks)
+            res["single_seconds"][key] = single_s["ba" if key.startswith("ba") else key]
+        log(f"{label} wall per step, ms (slowest rank, after a warm-up) / single rank, one process on the same GPU: "
+            + ", ".join(f"{k} {res['seconds'][k] * 1e3:.1f} / {res['single_seconds'][k] * 1e3:.1f}"
+                        for k in res["seconds"]) + f" ({note})")
+        return res
+
+    # ---- 22. four gloo ranks share the GPU ----
+    t0 = time.perf_counter()
+    ranks4 = par.run_on_mesh(mesh_rank, MESH_RANKS, ({**inp, "n": MESH_RANKS, "tile_mesh": (2, 2),
+                                                     "steps": ("halo", "batch", "dryrun")},),
+                             device="cuda", backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    log(f"phase 22: {MESH_RANKS} gloo ranks on cuda:0, world {world_s:.1f} s (spawn, CUDA contexts, steps)")
+    r22 = check_world("gloo x4", ranks4, (2, 2), False, SHARED)
+    halo_ok = all(all(r["halo equal"].values()) for r in ranks4)
+    q99 = [r["q99"] for r in ranks4]
+    log(f"gloo x4 (d) halo_exchange_rows of a {H}x{W} float32 frame, {H // MESH_RANKS}-row tiles, halo {halo}: "
+        f"equal to the padded frame's rows in every mode {halo_ok}; {ranks4[0]['halo bytes per exchange']} bytes sent "
+        f"per rank per exchange (two {halo}-row strips), staged through pinned host memory (gloo); wall per exchange "
+        + ", ".join(f"{m} {max(r['seconds'][f'halo {m}'] for r in ranks4) * 1e3:.2f} ms" for m in ("edge", "reflect",
+                                                                                                   "constant"))
+        + f"; q99 of the tiled flow magnitudes per rank {q99}")
+    if not halo_ok:
+        raise SystemExit("gloo x4: halo exchange disagrees with the padded frame")
+    rb = ranks4[0]["run_batch"]
+    same_rb = all(r["run_batch"]["danger_counts"] == batch_counts for r in ranks4)
+    rb_launches = sum(r["launches"]["run_batch"]["lk_level"] for r in ranks4)
+    log(f"gloo x4 (e) run_batch(n_devices={MESH_RANKS}), streams {list(BATCH_LENGTHS)}: {rb['steps']} steps, "
+        f"counts equal to phase 21's n_devices=1 run {same_rb}; lk_level launches per rank "
+        f"{[r['launches']['run_batch']['lk_level'] for r in ranks4]}; {rb['aggregate_fps']:.2f} pairs/s "
+        f"(phase 21, one process: {batch_fps:.2f}; {SHARED})")
+    if not same_rb or rb["devices"] != MESH_RANKS:
+        raise SystemExit("run_batch over 4 ranks disagrees with one device")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_RANKS, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    dry_s = time.perf_counter() - t0
+    log(f"gloo x4 (f) dryrun_multichip({MESH_RANKS}, backend='gloo'): {dry_s:.1f} s with its world; rank 0 "
+        + ", ".join(f"{k} {v:.4g}" for k, v in dry[0].items() if k != "launches")
+        + f"; launches per rank {[r['launches'] for r in dry]}")
+
+    # ---- 23. one NCCL rank ----
+    t0 = time.perf_counter()
+    ranks1 = par.run_on_mesh(mesh_rank, 1, ({**inp, "n": 1, "tile_mesh": (1, 1), "steps": ()},),
+                             device="cuda", backend="nccl", timeout_s=MESH_TIMEOUT_S)
+    log(f"phase 23: one NCCL rank, world {time.perf_counter() - t0:.1f} s")
+    r23 = check_world("nccl x1", ranks1, (1, 1), True,
+                      "one rank: the collectives' and the process's overhead, not scaling")
+
+    def launches(ranks, key, kernel):
+        return sum(r["launches"][key][kernel] for r in ranks)
+
+    by_path = {
+        "lk_level": {"parallel gloo x4": sum(launches(ranks4, k, "lk_level") for k in ("grid production", "grid exact"))
+                     + rb_launches,
+                     "parallel nccl x1": sum(launches(ranks1, k, "lk_level") for k in ("grid production", "grid exact")),
+                     "dryrun gloo x4": sum(r["launches"]["lk_level"] for r in dry)},
+        "patch_bilinear": {"parallel gloo x4": launches(ranks4, "grid exact", "patch_bilinear"),
+                           "parallel nccl x1": launches(ranks1, "grid exact", "patch_bilinear"),
+                           "dryrun gloo x4": sum(r["launches"]["patch_bilinear"] for r in dry)},
+        "warp gather": {"parallel gloo x4": launches(ranks4, "tiled exact", "warp_bilinear"),
+                        "parallel nccl x1": launches(ranks1, "tiled exact", "warp_bilinear"),
+                        "dryrun gloo x4": sum(r["launches"]["warp_bilinear"] for r in dry)},
+        "warp slab f32": {"parallel gloo x4": launches(ranks4, "tiled pallas", "warp_bilinear"),
+                          "parallel nccl x1": launches(ranks1, "tiled pallas", "warp_bilinear")},
+    }
+    return {
+        "by_path": by_path,
+        "record": {"mesh_gloo_x4": {**r22, "world_s": world_s, "run_batch_pairs_per_s": rb["aggregate_fps"],
+                                    "dryrun_s": dry_s, "q99": q99[0],
+                                    "halo_bytes_per_exchange": ranks4[0]["halo bytes per exchange"]},
+                   "mesh_nccl_x1": r23},
     }
 
 
@@ -2078,6 +2531,7 @@ def main() -> int:
     modes = dense_modes_phase(dev, dense_clip)
     viewer = dense_viewer_phase(dev, dense_clip, modes["fps"])
     batch = batch_phase(dev, sparse["scan_fps"])
+    mesh = parallel_phases(dev, batch.pop("batch_counts"), batch["batch_pairs_per_s"])
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
@@ -2109,19 +2563,24 @@ def main() -> int:
     (lk["launches_by_path"]["batch_runner"], (lk["launches_by_path"]["batch_runner exact"],
                                               pb["launches_by_path"]["batch_runner exact"])) = batch.pop(
         "batch_launches")
+    lk["launches_by_path"].update(mesh["by_path"]["lk_level"])
+    pb["launches_by_path"].update(mesh["by_path"]["patch_bilinear"])
     lk["launches"] = sum(lk["launches_by_path"].values())
     pb["launches"] = sum(pb["launches_by_path"].values())
     warp = dense.pop("kernel")
     warp["launches_by_path"].update({f"dense {m}": modes["launches"][m] for m in ("packed", "hybrid")})
     warp["launches_by_path"]["dense_viewer"] = warp_viewer
+    warp["launches_by_path"].update(mesh["by_path"]["warp gather"])
     warp["launches"] = sum(warp["launches_by_path"].values())
     for variant, mode in (("f32", "pallas"), ("bf16", "pallas_bf16")):
         slab[variant]["launches_by_path"] = {f"dense {mode}": modes["launches"][mode]}
-        slab[variant]["launches"] = modes["launches"][mode]
+    slab["f32"]["launches_by_path"].update(mesh["by_path"]["warp slab f32"])
+    for variant in ("f32", "bf16"):
+        slab[variant]["launches"] = sum(slab[variant]["launches_by_path"].values())
     record = {"kernels": [lk, warp, slab["f32"], slab["bf16"], pb, gather, batch_kernels["lk_level"],
                           batch_kernels["patch_bilinear"]], **sparse, **dense, **track, **scans,
               **app, **ego, **track_app, "dense_modes_fps": modes["fps"],
-              "dense_modes_median_epe_px": modes["median_epe_px"], **viewer, **batch}
+              "dense_modes_median_epe_px": modes["median_epe_px"], **viewer, **batch, **mesh["record"]}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

@@ -29,12 +29,19 @@ flow      grid LK flow over a frame pair or a clip (the pathfinder's loop);
           points run on the GPU unless the caller passes device="cpu".
 apps      the pathfinder app and the tracker app (a pose per frame),
           with checkpoint / resume; the dense viewer; the batch runner
-          (several streams, one stream-batched step per frame index)
+          (several streams, one stream-batched step per frame index, on
+          one device or sharded over ranks)
 io, viz,  decode, gray conversion, prefetch and offline tools; drawing
 utils     and the metrics plotter; logging, timing and checkpoints (host
           side)
-entry     one step of the flagship pipeline with example arguments (the
-          counterpart of the repository's __graft_entry__.py::entry)
+parallel  rank meshes over torch.distributed, the collectives of one mesh
+          axis, halo exchange, tiled and stream-sharded flow, distributed
+          and ring bundle adjustment, distributed quantiles, the launcher
+          of a world of ranks (each function is the JAX shard_map body:
+          every rank calls it with its own block)
+entry     one step of the flagship pipeline with example arguments and the
+          multi-rank dry run (the counterparts of the repository's
+          __graft_entry__.py::entry and dryrun_multichip)
 kernels   nvcc build + ctypes loader for csrc/*.cu
 convert   JAX-package state and configs (numpy-convertible) -> this
           package's tensors and configs

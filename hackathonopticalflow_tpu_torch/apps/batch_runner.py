@@ -11,10 +11,16 @@ kernels adds a batch grid axis. A stream whose decode ends is masked out
 while the batch keeps running: its slot repeats its last frame and its
 results are dropped (SURVEY.md §5.3).
 
-One device holds every stream: the JAX package's `lax.map` branch for
-several streams on a device exists for the TPU's scoped-VMEM limit, which
-the GPU does not have, so there is one path. `n_devices` above 1 waits for
-the multi-device layer (ROADMAP queue 1 item 8).
+A device runs all of its streams as one batch: the JAX package's
+`lax.map` branch for several streams on a device exists for the TPU's
+scoped-VMEM limit, which the GPU does not have, so there is one path.
+With `n_devices` n > 1 the streams are sharded over the ranks of a
+torch.distributed world (started by torchrun or
+parallel/mesh.py::run_on_mesh): n shrinks until it divides the stream
+count, rank r < n runs the r-th contiguous block of streams on its own
+device (as P("stream") splits the batch in the JAX package), the ranks
+past n idle, and every rank returns the same dict, the per-stream counts
+gathered in stream order: equal to the one-device run's.
 
 Frames come from `open_reader(video)`: cv2's `VideoReader` by default, or
 any reader with height, width, seek(i) and read() (io/prefetch.py).
@@ -29,6 +35,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import FilterParams, LKParams, NormalizeParams, measurement_grid
 from ..flow.device import resolve_device
@@ -36,6 +43,7 @@ from ..flow.lk_grid import lk_grid_flow_prepared, lk_grid_flow_video
 from ..io.prefetch import FramePrefetcher
 from ..io.video import VideoReader
 from ..ops.lk import prepare_frame
+from ..parallel.mesh import init_multihost, rank_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import get_logger
 
@@ -49,7 +57,8 @@ class BatchRunnerConfig:
     videos: list[str]
     step: int = 30
     max_frames: int | None = None
-    #: None or 1: every stream on one device
+    #: None or 1: every stream on one device; n > 1: streams sharded over
+    #: the first n ranks of the running world (each rank calls run_batch)
     n_devices: int | None = None
     lk: LKParams = LKParams()
     norm: NormalizeParams = NormalizeParams()
@@ -58,6 +67,9 @@ class BatchRunnerConfig:
     #: previous frame batch, alive mask) atomically every
     #: checkpoint_every steps; resumes from the file if present. The
     #: resumed per-stream output sequence equals an uninterrupted run's.
+    #: With n_devices > 1 each rank keeps its own block's file
+    #: (<root>.rank<r>of<n><ext>), all of them at the one-device run's
+    #: step when a run ends; a resume needs the same n.
     checkpoint_path: str | None = None
     checkpoint_every: int = 24
     #: where the flow runs: the GPU unless "cpu" is asked for
@@ -68,11 +80,33 @@ class BatchRunnerConfig:
 
 def _device(cfg: BatchRunnerConfig) -> torch.device:
     if cfg.n_devices not in (None, 1):
-        raise ValueError(
-            f"n_devices={cfg.n_devices}: streams over several devices need the multi-device "
-            "layer (ROADMAP queue 1 item 8); every stream runs on one device (n_devices None or 1)"
-        )
+        raise ValueError(f"n_devices={cfg.n_devices}: run_batch_staged runs every stream on one device")
     return resolve_device(cfg.device)
+
+
+def _shards(cfg: BatchRunnerConfig) -> int:
+    """The number of ranks the streams are sharded over: cfg.n_devices,
+    at most the world's size, shrunk until it divides the stream count."""
+    if not dist.is_initialized():
+        raise ValueError(
+            f"n_devices={cfg.n_devices} shards the streams over the ranks of a torch.distributed world: "
+            "start them with torchrun (python -m hackathonopticalflow_tpu_torch.apps.batch_runner "
+            "--n-devices N) or parallel.mesh.run_on_mesh; n_devices None or 1 runs every stream on one device"
+        )
+    world = dist.get_world_size()
+    if cfg.n_devices > world:
+        raise ValueError(f"n_devices={cfg.n_devices} but the world has {world} ranks")
+    n = cfg.n_devices
+    while len(cfg.videos) % n:
+        n -= 1
+    return n
+
+
+def _checkpoint_step(path: str | None) -> int | None:
+    """The step a checkpoint file records, None without one."""
+    if not path or not os.path.exists(path):
+        return None
+    return int(load_checkpoint(path, {"n_steps": np.int64(0)})["n_steps"])
 
 
 def run_batch(cfg: BatchRunnerConfig) -> dict:
@@ -85,20 +119,81 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
     device. Each step's counts come back with one non-blocking copy behind
     an event and are read one step late, while the next step runs. The
     first step is run once before the clock starts (kernel build, index
-    caches)."""
-    dev = _device(cfg)
+    caches).
+
+    With n_devices > 1 every rank of the world calls it: rank r < n runs
+    its block of streams this way on its own device
+    (rank_device(cfg.device)), and the blocks' results are gathered to
+    every rank. The steps and the first step are the whole run's, the
+    wall time the slowest block's. Each block's checkpoint file ends each
+    run at the step where the one-device run's checkpoint would be, so a
+    resume under the same n continues as the one-device run's does."""
+    if cfg.n_devices in (None, 1):
+        n = 1
+        blocks = [_run_block(cfg, cfg.videos, resolve_device(cfg.device), cfg.checkpoint_path)]
+    else:
+        n = _shards(cfg)
+        rank = dist.get_rank()
+        per = len(cfg.videos) // n
+        ck = None
+        if cfg.checkpoint_path and rank < n:
+            root, ext = os.path.splitext(cfg.checkpoint_path)
+            ck = f"{root}.rank{rank}of{n}{ext}"
+        saved = [None] * dist.get_world_size()
+        dist.all_gather_object(saved, _checkpoint_step(ck))
+        if len(set(saved[:n])) > 1:
+            raise ValueError(
+                f"the blocks' checkpoints of {cfg.checkpoint_path} record different steps {saved[:n]} "
+                "(a run was killed midway or a file is missing): they cannot resume one run"
+            )
+        block = last_prev = None
+        if rank < n:
+            block = _run_block(cfg, cfg.videos[rank * per : (rank + 1) * per], rank_device(cfg.device), ck)
+            last_prev = block.pop("last_prev")
+        blocks = [None] * dist.get_world_size()
+        dist.all_gather_object(blocks, block)
+        blocks = blocks[:n]
+        if ck:
+            # the one-device run's last checkpoint is at the run's last
+            # periodic step S; a block that ended before S records there,
+            # its streams all dead, so every block's file is that one
+            done = max(blk["n_steps"] for blk in blocks) - block["n_steps0"]
+            last = block["n_steps0"] + done // cfg.checkpoint_every * cfg.checkpoint_every
+            if block["n_steps"] < last:
+                save_checkpoint(ck, n_steps=np.int64(last), prev=last_prev, alive=np.zeros(per, bool))
+    # the blocks share the step they started at and their first frame
+    danger_counts = [c for blk in blocks for c in blk["danger_counts"]]
+    wall = max(blk["wall_s"] for blk in blocks)
+    total_frames = sum(len(d) for d in danger_counts)
+    return {
+        "streams": len(cfg.videos),
+        "devices": n,
+        "steps": max(blk["n_steps"] for blk in blocks) - blocks[0]["n_steps0"],
+        "first_step": blocks[0]["start"],
+        "total_frames": total_frames,
+        "wall_s": wall,
+        "aggregate_fps": total_frames / max(wall, 1e-9),
+        "mean_danger_per_stream": [float(np.mean(d)) if d else 0.0 for d in danger_counts],
+        "danger_counts": danger_counts,
+    }
+
+
+def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoint_path: str | None) -> dict:
+    """run_batch's loop over one device's block of streams: their danger
+    counts, the step counter at the start and at the end, the first frame
+    decoded, the wall time and the last frame batch."""
     cuda = dev.type == "cuda"
-    b = len(cfg.videos)
+    b = len(videos)
 
     # resume: restore (step index, previous frame batch, alive mask) and
     # pick each stream's decode up where the checkpoint left it
     resume = None
-    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
-        probe = cfg.open_reader(cfg.videos[0])
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        probe = cfg.open_reader(videos[0])
         h0, w0 = probe.height, probe.width
         probe.release()
         resume = load_checkpoint(
-            cfg.checkpoint_path,
+            checkpoint_path,
             {
                 "n_steps": np.int64(0),
                 "prev": np.zeros((b, h0, w0), np.uint8),
@@ -115,7 +210,7 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
     remaining = None if cfg.max_frames is None else cfg.max_frames - start
     prefetchers = [
         FramePrefetcher(v, start_frame=start, max_frames=remaining, open_reader=cfg.open_reader)
-        for v in cfg.videos
+        for v in videos
     ]
     try:
         iters = [iter(p) for p in prefetchers]
@@ -159,9 +254,9 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
                 if alive_at[i]:
                     danger_counts[i].append(int(counts[i]))
             since_save += 1
-            if cfg.checkpoint_path and since_save >= cfg.checkpoint_every:
+            if checkpoint_path and since_save >= cfg.checkpoint_every:
                 save_checkpoint(
-                    cfg.checkpoint_path,
+                    checkpoint_path,
                     n_steps=np.int64(n_steps_at),
                     prev=frames_buf[slot].numpy().copy(),
                     alive=alive_at.copy(),
@@ -204,22 +299,12 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
         if pending is not None:
             consume(pending)
         wall = time.time() - t0
+        last_prev = frames_buf[slot].numpy().copy()
     finally:
         for p in prefetchers:
             p.close()
-
-    total_frames = sum(len(d) for d in danger_counts)
-    return {
-        "streams": b,
-        "devices": 1,
-        "steps": n_steps - n_steps0,
-        "first_step": start,
-        "total_frames": total_frames,
-        "wall_s": wall,
-        "aggregate_fps": total_frames / max(wall, 1e-9),
-        "mean_danger_per_stream": [float(np.mean(d)) if d else 0.0 for d in danger_counts],
-        "danger_counts": danger_counts,
-    }
+    return {"danger_counts": danger_counts, "n_steps0": n_steps0, "n_steps": n_steps, "start": start,
+            "wall_s": wall, "last_prev": last_prev}
 
 
 def run_batch_staged(cfg: BatchRunnerConfig, reps: int = 3) -> dict:
@@ -298,18 +383,41 @@ def main(argv: list[str] | None = None) -> None:
     )
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument(
+        "--n-devices",
+        type=int,
+        default=None,
+        help="shard the streams over N ranks, each launched by torchrun --nproc-per-node N",
+    )
+    p.add_argument(
+        "--backend",
+        choices=("nccl", "gloo"),
+        default=None,
+        help="with --n-devices: nccl (a GPU per rank; the default on CUDA) or gloo (ranks sharing one GPU, or the CPU)",
+    )
     args = p.parse_args(argv)
     cfg = BatchRunnerConfig(
         videos=args.videos,
         max_frames=args.max_frames,
+        n_devices=args.n_devices,
         checkpoint_path=args.checkpoint,
         # production path: the static-grid lanes kernels, all streams per launch
         lk=LKParams(grid_step=30, compute_err=False),
         device=args.device,
     )
-    stats = run_batch_staged(cfg) if args.staged else run_batch(cfg)
+    world = False
+    if (args.n_devices or 1) > 1:  # the ranks torchrun started
+        backend = args.backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+        world = init_multihost(backend=backend)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    try:
+        stats = run_batch_staged(cfg) if args.staged else run_batch(cfg)
+    finally:
+        if world:
+            dist.destroy_process_group()
     stats.pop("danger_counts", None)
-    print(stats)
+    if rank == 0:
+        print(stats)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,10 @@ on the CPU. Mirrors tests/test_apps.py's batch-runner tests:
 - total_frames 8 + 6, the ended stream masked;
 - run_batch_staged == run_batch exactly;
 - checkpoint / resume and a double resume keep the "n_steps == index of
-  prev" invariant;
-- device="cuda" without CUDA, and n_devices > 1, raise.
+  prev" invariant; a rerun after every stream ended resumes from the last
+  periodic checkpoint, as JAX's does;
+- device="cuda" without CUDA raises; so does n_devices > 1 outside a
+  world of ranks, and staged.
 """
 
 from unittest import mock
@@ -121,6 +123,26 @@ def test_checkpoint_resume(tmp_path):
         assert part2["danger_counts"][i] == full["danger_counts"][i][2:]
 
 
+def test_resume_after_every_stream_ended_matches_jax(clips, streaming, tmp_path):
+    """Both streams end before max_frames (after steps 6 and 8): no
+    checkpoint is written at the end, so a rerun resumes from the last
+    periodic one (step 6) as JAX's run_batch does."""
+    runs = {}
+    for name, run, cfg in (("port", tbr.run_batch, _cfg), ("jax", j_run_batch, lambda v, **kw: JConfig(videos=v, **kw))):
+        kw = dict(max_frames=20, checkpoint_path=str(tmp_path / f"{name}.ckpt.npz"), checkpoint_every=3)
+        runs[name] = [run(cfg(clips, **kw)) for _ in range(2)]
+    n_pts = len(measurement_grid(H, W, 30))
+    for got, want in zip(runs["port"], runs["jax"]):
+        assert (got["steps"], got["first_step"]) == (want["steps"], want["first_step"])
+        assert [len(c) for c in got["danger_counts"]] == [len(c) for c in want["danger_counts"]]
+        for g, w in zip(got["danger_counts"], want["danger_counts"]):
+            assert np.abs(np.array(g) - np.array(w)).max(initial=0) <= 0.02 * n_pts
+    part1, part2 = runs["port"]
+    assert part1["danger_counts"] == streaming["danger_counts"]
+    assert (part2["first_step"], part2["steps"]) == (7, 2)
+    assert part2["danger_counts"] == [streaming["danger_counts"][0][6:], []]
+
+
 def test_double_resume(tmp_path):
     """A crash after a resume: the resumed run's checkpoints keep the
     n_steps == prev-frame-index invariant, so a second resume neither
@@ -147,5 +169,9 @@ def test_cuda_without_cuda_and_several_devices_raise(clips):
             tbr.run_batch(tbr.BatchRunnerConfig(videos=clips))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tbr.run_batch_staged(tbr.BatchRunnerConfig(videos=clips))
-    with pytest.raises(ValueError, match="item 8"):
+    # several devices shard the streams over the ranks of a world
+    # (tests/test_torch_parallel_ba.py); outside one, and staged, it raises
+    with pytest.raises(ValueError, match="torch.distributed world"):
         tbr.run_batch(_cfg(clips, n_devices=2))
+    with pytest.raises(ValueError, match="one device"):
+        tbr.run_batch_staged(_cfg(clips, n_devices=2))

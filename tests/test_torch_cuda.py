@@ -475,3 +475,35 @@ def test_patch_bilinear_stream_batched_kernel_matches_plain(cuda_device, c, b):
     for s in range(b):
         rows = slice(s * 576, (s + 1) * 576)
         assert torch.equal(got[rows], patch_bilinear(planes[s], tl[rows].contiguous(), 45, 45, True))
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_gpu(cuda_device):
+    """Two gloo ranks on cuda:0 (parallel/mesh.py::run_on_mesh): halo
+    exchange of CUDA tensors in every mode (the gloo route stages them
+    through the host) equal to slices of the padded frame, and
+    stream_batched_grid_flow (one stream a rank, production params, 3
+    lk_level launches a rank) identical to each stream's lk_grid_flow."""
+    import torch_parallel_ranks as ranks
+
+    from hackathonopticalflow_tpu_torch import kernels, parallel
+    from hackathonopticalflow_tpu_torch.flow.lk_grid import lk_grid_flow
+
+    kernels.build("lk_level")  # once, before the ranks load it
+    f0, f1, f2 = _frames(3)
+    x = np.arange(64 * 6, dtype=np.float32).reshape(64, 6)
+    inp = {"ranks": 2, "halo_x": x, "streams": (np.stack([f0, f1]), np.stack([f1, f2])),
+           "pts": measurement_grid(*f0.shape, PARAMS.grid_step)}
+    out = parallel.run_on_mesh(ranks.cuda_checks, 2, (inp,), device="cuda", backend="gloo", timeout_s=300)
+    h = ranks.HALO_ROWS
+    for mode in ranks.HALO_MODES:
+        padded = np.pad(x, ((h, h), (0, 0)), mode=mode)
+        for r in range(2):
+            assert np.array_equal(out[r][f"halo_{mode}"].numpy(), padded[r * 32 : r * 32 + 32 + 2 * h]), (mode, r)
+    pts = torch.from_numpy(inp["pts"])
+    for r in range(2):
+        assert out[r]["lk_level_launches"] == PARAMS.max_level + 1
+        want = lk_grid_flow(torch.from_numpy(inp["streams"][0][r]), torch.from_numpy(inp["streams"][1][r]), pts,
+                            lk=PARAMS, device=cuda_device)
+        for field, value in zip(want._fields, want):
+            assert torch.equal(getattr(out[r]["grid"], field)[0], value.cpu()), (r, field)

@@ -26,7 +26,8 @@ assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.fea
         "ops.color", "io.prefetch", "io.native_lib", "viz.layers", "utils.checkpoint", "nav.camera",
         "nav.foe", "nav.metrics", "nav.pose", "nav.ba", "nav.odometry", "apps.tracker_app",
         "apps.dense_viewer", "apps.batch_runner", "io.tools", "viz.plotter", "utils.profiling",
-        "entry"} <= names, names
+        "entry", "parallel", "parallel.mesh", "parallel.collectives", "parallel.halo", "parallel.quantile",
+        "parallel.tiling", "parallel.streams", "parallel.ba_dist", "parallel.ba_ring"} <= names, names
 from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
