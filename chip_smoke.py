@@ -90,10 +90,12 @@ Phases, in order; any failure exits non-zero:
     table identical to phase 10's track_video history; ego_motion_track at
     OdometryConfig() on it (keyframes, windows, BA cost; the zoom clip is a
     plane, so its direction is printed, not held); on scene_table()'s 3D
-    scene (256 slots, 49 frames): forward flight, the BA chain's ATE within
-    1% of the trajectory's span, and the GPU's geometry against the CPU's
-    (identical keyframes, centres within 1e-3 of the span); tracking fps,
-    geometry ms on both devices and the GPU's syncs per clip;
+    scene (256 slots, 49 frames), by three routes (the default: keyframes
+    on the GPU, windows on the host; geometry_device="cuda"; all on the
+    CPU): forward flight, the BA chain's ATE within 1% of the trajectory's
+    span, and each route against the CPU route (identical keyframes,
+    centres within 1e-3 of the span); tracking fps, each route's geometry
+    ms and syncs per clip;
 17. the tracker app (apps/tracker_app.py) with the pose on, over 48 frames
     through ClipReader: both kernels at every level of every step, the
     final tracks and heads equal to track_video's, a checkpointed run and
@@ -180,6 +182,7 @@ the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -472,7 +475,6 @@ def kernel_variants(name: str, lib_path) -> list[dict]:
     cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
     in the library), held against the registers of nvcc's ptxas report
     (the .log beside the library)."""
-    import importlib
     import re
 
     mod = importlib.import_module(f"hackathonopticalflow_tpu_torch.ops.{name}")
@@ -646,7 +648,7 @@ def dense_phases(dev, clip) -> dict:
     """Phases 6-8: the dense Farneback path through warp_bilinear."""
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
     from hackathonopticalflow_tpu_torch.flow import dense
-    from hackathonopticalflow_tpu_torch.ops import farneback as fb
+    fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
@@ -886,7 +888,7 @@ def tracker_phases(dev, clip) -> dict:
 
     # ---- 10. main path ----
     steps = clip.shape[0] - 1
-    s0 = tracker.track_step(tracker.init_tracker(params), clip[0], clip[0], params, device=dev)
+    s0 = tracker.track_step(tracker.init_tracker(params, dev), clip[0], clip[0], params, device=dev)
     lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
     state, (heads, alive, length) = tracker.track_video(clip, params, s0, device=dev)
     torch.cuda.synchronize()
@@ -1398,17 +1400,20 @@ def ego_phase(dev, clip, history) -> dict:
     """Phase 16: ego-motion at 1080p. collect_tracks over the 49-frame clip
     at TrackerParams() (a seeding step, then chunks of 32 steps through
     both kernels), its table identical to phase 10's track_video history;
-    ego_motion_track at OdometryConfig() on that table on the GPU: >= 4
-    keyframe centres, its direction printed. The zoom clip is one textured
-    plane, for which the 8-point estimate has a family of solutions: the
-    JAX package's chain on the same table is no closer to forward flight
-    (mean |unit-step z| 0.53). So forward flight is held on scene_table()'s
-    3D scene (256 slots, 49 frames, slots reborn as landmarks leave the
-    view): on the GPU, mean |unit-step z| > 0.9 and the BA chain's ATE
-    (Umeyama, with scale) within 1% of the true trajectory's span and no
-    worse than the raw chain's; the GPU against the CPU: identical
-    keyframes, centres within 1e-3 of the span. Tracking fps, geometry ms
-    on both devices (best of GEOMETRY_REPS) and the geometry's syncs."""
+    ego_motion_track at OdometryConfig() on that table by its default
+    route (keyframes on the GPU, windows on the host): >= 4 keyframe
+    centres, its direction printed. The zoom clip is one textured plane,
+    for which the 8-point estimate has a family of solutions: the JAX
+    package's chain on the same table is no closer to forward flight (mean
+    |unit-step z| 0.53). So forward flight is held on scene_table()'s 3D
+    scene (256 slots, 49 frames, slots reborn as landmarks leave the view)
+    by three routes, the default, geometry_device="cuda" (all on the GPU)
+    and all on the CPU: for each, mean |unit-step z| > 0.9, the BA chain's
+    ATE (Umeyama, with scale) within 1% of the true trajectory's span and
+    no worse than the raw chain's, and against the CPU route identical
+    keyframes and centres within 1e-3 of the span. Tracking fps, and each
+    route's geometry ms (best of GEOMETRY_REPS) and syncs per clip on both
+    tables."""
     from hackathonopticalflow_tpu_torch.core import TrackerParams
     from hackathonopticalflow_tpu_torch.flow.tracker import _heads
     from hackathonopticalflow_tpu_torch.nav import odometry as odo
@@ -1437,11 +1442,16 @@ def ego_phase(dev, clip, history) -> dict:
 
     cam = Pinhole.from_fov(W, H, 155.0)
     cfg = odo.OdometryConfig()
+    # (device, geometry_device) by route: the default tracks and picks
+    # keyframes on the GPU and solves the windows on the host
+    routes = {"default": (dev, "cpu"), "gpu": (dev, dev), "cpu": ("cpu", "cpu")}
 
-    def geometry(tab, device):
-        return odo.ego_motion_track(None, params, cam, cfg, table=tab, device=device)
+    def geometry(tab, route):
+        device, geometry_device = routes[route]
+        return odo.ego_motion_track(None, params, cam, cfg, table=tab, device=device,
+                                    geometry_device=geometry_device)
 
-    res = geometry(table, dev)
+    res = geometry(table, "default")
     steps = np.diff(res.centers, axis=0)
     steps /= np.linalg.norm(steps, axis=-1, keepdims=True) + 1e-12
     forward = float(np.abs(steps[:, 2]).mean())
@@ -1454,46 +1464,50 @@ def ego_phase(dev, clip, history) -> dict:
 
     scene, truth = scene_table(h=H, w=W)
     stable = odo.TrackTable(*scene)
-    card, host = geometry(stable, dev), geometry(stable, "cpu")
-    ref = truth[card.kf_idx]
-    span = float(np.linalg.norm(ref - ref[0], axis=-1).max())
-    err = float(np.abs(card.centers - host.centers).max()) / span
-    same_kf = card.kf_idx.tolist() == host.kf_idx.tolist()
-    steps = np.diff(card.centers, axis=0)
-    steps /= np.linalg.norm(steps, axis=-1, keepdims=True) + 1e-12
-    scene_forward = float(np.abs(steps[:, 2]).mean())
-    ate = ate_umeyama(card.centers, ref)["rmse"] / span
-    ate_raw = ate_umeyama(card.raw_centers, ref)["rmse"] / span
-    log(f"ego 3D scene ({scene[0].shape[1]} slots, {scene[0].shape[0]} frames): keyframes {card.kf_idx.tolist()}, "
-        f"{len(card.stats)} windows, median BA cost {np.median([s['cost0'] for s in card.stats]):.4g} -> "
-        f"{np.median([s['cost'] for s in card.stats]):.4g}; mean |unit-step z| {scene_forward:.4f}; ATE / span: "
-        f"BA {ate:.3g}, raw chain {ate_raw:.3g}; GPU vs CPU: keyframes identical {same_kf}, centres max |d| / span "
-        f"{err:.3g}")
-    if len(card.centers) < 4 or not scene_forward > 0.9 or not ate <= min(0.01, ate_raw):
-        raise SystemExit("ego-motion on the 3D scene is not its forward flight")
-    if not same_kf or not err <= 1e-3:
-        raise SystemExit("the ego-motion geometry on the GPU disagrees with the CPU")
-    times = {}
+    runs = {route: geometry(stable, route) for route in routes}
+    host = runs["cpu"]
+    out = {"ego_keyframes": len(host.kf_idx), "ego_windows": len(host.stats), "ego_centres_vs_cpu_over_span": {},
+           "ego_scene_forward": {}, "ego_scene_ate_over_span": {}, "ego_scene_raw_ate_over_span": {}}
+    for route, run in runs.items():
+        ref = truth[run.kf_idx]
+        span = float(np.linalg.norm(ref - ref[0], axis=-1).max())
+        same_kf = run.kf_idx.tolist() == host.kf_idx.tolist()
+        err = float(np.abs(run.centers - host.centers).max()) / span if same_kf else float("inf")
+        steps = np.diff(run.centers, axis=0)
+        steps /= np.linalg.norm(steps, axis=-1, keepdims=True) + 1e-12
+        scene_forward = float(np.abs(steps[:, 2]).mean())
+        ate = ate_umeyama(run.centers, ref)["rmse"] / span
+        ate_raw = ate_umeyama(run.raw_centers, ref)["rmse"] / span
+        log(f"ego 3D scene ({scene[0].shape[1]} slots, {scene[0].shape[0]} frames), {route} route: keyframes "
+            f"{run.kf_idx.tolist()}, {len(run.stats)} windows, median BA cost "
+            f"{np.median([s['cost0'] for s in run.stats]):.4g} -> {np.median([s['cost'] for s in run.stats]):.4g}; "
+            f"mean |unit-step z| {scene_forward:.4f}; ATE / span: BA {ate:.3g}, raw chain {ate_raw:.3g}; against "
+            f"the CPU route: keyframes identical {same_kf}, centres max |d| / span {err:.3g}")
+        if len(run.centers) < 4 or not scene_forward > 0.9 or not ate <= min(0.01, ate_raw):
+            raise SystemExit(f"ego-motion on the 3D scene ({route} route) is not its forward flight")
+        if not err <= 1e-3:
+            raise SystemExit(f"the ego-motion geometry's {route} route disagrees with the CPU route")
+        out["ego_centres_vs_cpu_over_span"][route] = err
+        out["ego_scene_forward"][route] = scene_forward
+        out["ego_scene_ate_over_span"][route] = ate
+        out["ego_scene_raw_ate_over_span"][route] = ate_raw
+    times, syncs = {}, {}
     for name, tab in (("scene", stable), ("zoom", table)):
-        for device in (dev, "cpu"):
-            key = f"{name} {'gpu' if device == dev else 'cpu'}"
-            times[key] = min(host_seconds(lambda: geometry(tab, device)) for _ in range(GEOMETRY_REPS)) * 1e3
-    syncs = sync_calls(lambda: geometry(stable, dev))
+        for route in routes:
+            key = f"{name} {route}"
+            times[key] = min(host_seconds(lambda: geometry(tab, route)) for _ in range(GEOMETRY_REPS)) * 1e3
+            syncs[key] = sum(sync_calls(lambda: geometry(tab, route)).values())
     log(f"ego tracking {n_frames - 1} steps {H}p (collect_tracks): {(n_frames - 1) / track_s:.2f} fps "
         f"({track_s * 1e3:.1f} ms, best of {GEOMETRY_REPS})")
     log("ego geometry (ms, host clock, best of %d; CPU on %d threads): " % (GEOMETRY_REPS, torch.get_num_threads())
-        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f"; GPU syncs per 3D-scene clip {syncs}")
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + "; syncs per clip: "
+        + ", ".join(f"{k} {v}" for k, v in syncs.items()))
     return {
         "odometry_launches": (lk_n, pb_n),
         "ego_tracking_fps": (n_frames - 1) / track_s,
         "ego_geometry_ms": times,
         "ego_geometry_syncs": syncs,
-        "ego_keyframes": len(card.kf_idx),
-        "ego_windows": len(card.stats),
-        "ego_gpu_vs_cpu_centres_over_span": err,
-        "ego_scene_forward": scene_forward,
-        "ego_scene_ate_over_span": ate,
-        "ego_scene_raw_ate_over_span": ate_raw,
+        **out,
         "ego_zoom_forward": forward,
     }
 
@@ -1527,7 +1541,7 @@ def tracker_app_phase(dev, clip, tracker_fps: float) -> dict:
     full = full_app.run(headless=True)
     torch.cuda.synchronize()
     lk_n, pb_n = lk_level.launches, patch_bilinear.launches
-    s0 = tracker.track_step(tracker.init_tracker(params), clip[0], clip[0], params, device=dev)
+    s0 = tracker.track_step(tracker.init_tracker(params, dev), clip[0], clip[0], params, device=dev)
     state, _ = tracker.track_video(clip[:n], params, s0, device=dev)
     want_heads = tracker._heads(state)[state.alive].cpu().numpy()
     same = full["final_tracks"] == int(state.alive.sum()) and np.array_equal(full["final_heads"], want_heads)
@@ -1589,7 +1603,7 @@ def slab_phase(dev, clip) -> dict:
     margins the same samples; no PyTorch call samples a bf16 source at
     float32 coordinates)."""
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
-    from hackathonopticalflow_tpu_torch.ops import farneback as fb
+    fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import (
         _corners,
         slab_origins,
@@ -1679,7 +1693,7 @@ def dense_modes_phase(dev, clip) -> dict:
     of 2)."""
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
     from hackathonopticalflow_tpu_torch.flow import dense
-    from hackathonopticalflow_tpu_torch.ops import farneback as fb
+    fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 
     pairs = DENSE_FRAMES - 1
@@ -2132,7 +2146,7 @@ def mesh_rank(dev, inp: dict) -> dict:
     from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch
     from hackathonopticalflow_tpu_torch.core import FarnebackParams, LKParams
     from hackathonopticalflow_tpu_torch.nav.ba import BAState
-    from hackathonopticalflow_tpu_torch.ops import farneback as fb
+    fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
     from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level_reference

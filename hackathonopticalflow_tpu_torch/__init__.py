@@ -18,11 +18,13 @@ ops       frame preparation, grid templates, windows at arbitrary points
           corners, stats; dense image primitives, the coefficient warp
           (CUDA kernel `warp_bilinear` beside its plain version, in the
           exact gather's and the TPU slab's geometry), Farneback in every
-          warp mode
+          warp mode; `ops` and `flow` re-export the JAX package's names
 nav       radial normalization (grid and dense), the robust masks, danger
           values; the camera, FOE, relative pose (RANSAC), Schur bundle
-          adjustment and the windowed odometry (ego_motion_track, on the
-          GPU unless the caller passes device="cpu"), metrics
+          adjustment and the windowed odometry (ego_motion_track: tracks
+          and keyframes on the GPU unless the caller passes device="cpu",
+          the window solves on the host CPU unless it passes another
+          geometry_device, as the JAX package places them), metrics
 flow      grid LK flow over a frame pair or a clip (the pathfinder's loop);
           dense Farneback flow over a pair or a clip; the Shi-Tomasi +
           forward-backward LK tracker over a pair or a clip. These entry

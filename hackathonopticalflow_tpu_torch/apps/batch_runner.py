@@ -50,6 +50,9 @@ from ..utils.logging import get_logger
 log = get_logger("apps.batch_runner")
 
 STAGED_CHUNK = 24  # frame pairs per chunk of run_batch_staged
+#: the reference clips, which the command line runs with --corpus or
+#: without videos (the JAX package's runner globs the same)
+CORPUS_GLOB = "/root/reference/videos/*.mp4"
 
 
 @dataclasses.dataclass
@@ -372,9 +375,11 @@ def run_batch_staged(cfg: BatchRunnerConfig, reps: int = 3) -> dict:
 
 def main(argv: list[str] | None = None) -> None:
     import argparse
+    import glob
 
     p = argparse.ArgumentParser(description="multi-stream batched pathfinder on PyTorch (GPU unless --device cpu)")
-    p.add_argument("videos", nargs="+")
+    p.add_argument("videos", nargs="*", help=f"clips to run; none: the reference clips ({CORPUS_GLOB})")
+    p.add_argument("--corpus", action="store_true", help=f"run the reference clips ({CORPUS_GLOB})")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument(
         "--staged",
@@ -396,8 +401,13 @@ def main(argv: list[str] | None = None) -> None:
         help="with --n-devices: nccl (a GPU per rank; the default on CUDA) or gloo (ranks sharing one GPU, or the CPU)",
     )
     args = p.parse_args(argv)
+    videos = args.videos
+    if args.corpus or not videos:
+        videos = sorted(glob.glob(CORPUS_GLOB))
+    if not videos:
+        p.error(f"no videos given and none match {CORPUS_GLOB}")
     cfg = BatchRunnerConfig(
-        videos=args.videos,
+        videos=videos,
         max_frames=args.max_frames,
         n_devices=args.n_devices,
         checkpoint_path=args.checkpoint,

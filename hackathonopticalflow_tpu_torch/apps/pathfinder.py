@@ -409,6 +409,8 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--no-render", action="store_true")
     p.add_argument("--exact", action="store_true",
                    help="the exact LK path (OpenCV-parity golden reference) instead of the grid kernels")
+    # a no-op kept, as in the JAX package, so that old invocations still parse
+    p.add_argument("--fast", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--chunk", type=int, default=None,
                    help="headless chunked pipeline: frame pairs per device chunk")
     p.add_argument("--checkpoint", default=None,

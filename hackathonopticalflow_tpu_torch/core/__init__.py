@@ -9,10 +9,10 @@ from .config import (
     NormalizeParams,
     TrackerParams,
 )
-from .grid import measurement_grid
+from .grid import grid_shape, measurement_grid
 
 __all__ = [
     "LKParams", "NormalizeParams", "FilterParams", "FarnebackParams",
     "FeatureParams", "TrackerParams", "GridParams", "TRACKER_LK", "PROTO_FILTER",
-    "measurement_grid",
+    "measurement_grid", "grid_shape",
 ]

@@ -69,6 +69,10 @@ class LKParams:
     #: crop margin of the init-centred levels (px at the level's scale)
     rescue_margin: int = 20
 
+    @property
+    def win_area(self) -> int:
+        return self.win_size[0] * self.win_size[1]
+
 
 #: Tracker-flavoured LK (reference SparseOF.py:6-8): window 15, init-centred
 #: crops of margin 8 around each point's init.

@@ -25,3 +25,9 @@ def measurement_grid(height: int, width: int, step: int = 30) -> np.ndarray:
     ys = np.arange(indent_h, height, step).astype(int)
     xx, yy = np.meshgrid(xs, ys, indexing="ij")
     return np.stack([xx.ravel(), yy.ravel()], axis=-1).astype(np.float32)
+
+
+def grid_shape(height: int, width: int, step: int = 30) -> tuple[int, int]:
+    """(n_x, n_y) cell counts of the measurement grid."""
+    pts = measurement_grid(height, width, step)
+    return len(np.unique(pts[:, 0])), len(np.unique(pts[:, 1]))

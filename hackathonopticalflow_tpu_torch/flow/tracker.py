@@ -33,9 +33,10 @@ class TrackerState(NamedTuple):
     frame_idx: int  # frames stepped so far
 
 
-def init_tracker(params: TrackerParams = TrackerParams(), device: torch.device | str = "cpu") -> TrackerState:
-    """An empty track table on `device` (the entry points move it to
-    theirs)."""
+def init_tracker(params: TrackerParams = TrackerParams(), device: torch.device | str = "cuda") -> TrackerState:
+    """An empty track table on `device` (the GPU unless device="cpu"; the
+    entry points move a state to theirs)."""
+    device = resolve_device(device)
     t, l = params.max_tracks, params.trajectory_len
     return TrackerState(
         traj=torch.zeros((t, l, 2), dtype=torch.float32, device=device),

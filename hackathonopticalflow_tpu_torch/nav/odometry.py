@@ -15,9 +15,15 @@ hackathonopticalflow_tpu/nav/odometry.py).
 6. `ego_motion_track` runs sliding windows, stitches them in a pose graph
    and returns the global keyframe chain, BA-refined and raw.
 
-The geometry runs on the tracker's device. The windows of one clip that
-share a shape solve as ONE batch with a leading window dimension (what
-the JAX package's lax.map computes window by window); the keyframe pairs'
+Tracking and keyframe selection run on `device` (the GPU unless the
+caller passes device="cpu"); the window solves (pose RANSAC, chain,
+triangulation, gate, Schur BA) run on `geometry_device`, the host CPU by
+default, as the JAX package's _geometry_device places them: tens of
+poses and hundreds of landmarks a window, solves that are latency-bound
+and tiny, and on a GPU wait on the device thousands of times a clip. The
+pose-graph stitch is host numpy in both packages. The windows of one clip that share a
+shape solve as ONE batch with a leading window dimension (what the JAX
+package's lax.map computes window by window); the keyframe pairs'
 parallax is one batched call. Each group's results come back in one
 packed copy.
 """
@@ -489,12 +495,16 @@ def ego_motion_track(
     cfg: OdometryConfig = OdometryConfig(),
     table: TrackTable | None = None,
     device: torch.device | str = "cuda",
+    geometry_device: torch.device | str = "cpu",
 ) -> EgoMotionResult:
-    """Ego-motion over a clip of (H, W) frames: tracking (collect_tracks),
-    keyframes, windowed BA and the pose-graph stitch, on `device` (the GPU
-    unless device="cpu"). Pass a precomputed `table` to rerun the geometry
-    without re-tracking (frames are then unused)."""
+    """Ego-motion over a clip of (H, W) frames: tracking (collect_tracks)
+    and keyframes on `device` (the GPU unless device="cpu"), the windowed
+    BA on `geometry_device` (the host CPU unless the caller passes
+    another), then the pose-graph stitch on the host. Pass a precomputed
+    `table` to rerun the geometry without re-tracking (frames are then
+    unused)."""
     device = resolve_device(device)
+    geometry_device = resolve_device(geometry_device)
     cfg = resolve_config(cfg, cam)
     if table is None:
         table = collect_tracks(frames, tracker_params, device=device)
@@ -519,7 +529,7 @@ def ego_motion_track(
     if cfg.scale_votes:
         # sequential dependence through the growing map: window by window
         for st_i, obs, mask in entries:
-            rv, tv, st = window_ba(obs.to(device), mask, cfg)
+            rv, tv, st = window_ba(obs.to(geometry_device), mask, cfg)
             wins_ba[st_i] = (rv, tv)
             wins_raw[st_i] = (st["raw_rvecs"], st["raw_tvecs"])
             stats_by_start[st_i] = st
@@ -529,8 +539,8 @@ def ego_motion_track(
         for e in entries:
             groups.setdefault(e[1].shape[0], []).append(e)
         for gm, ents in groups.items():
-            obs_b = torch.stack([e[1] for e in ents]).to(device)
-            mask_b = torch.from_numpy(np.stack([e[2] for e in ents])).to(device)
+            obs_b = torch.stack([e[1] for e in ents]).to(geometry_device)
+            mask_b = torch.from_numpy(np.stack([e[2] for e in ents])).to(geometry_device)
             rows = _window_solve(obs_b, mask_b, cfg).cpu().numpy()  # one fetch per group
             for (st_i, _, _), row in zip(ents, rows):
                 rv, tv, st = _unpack_window(row, gm)

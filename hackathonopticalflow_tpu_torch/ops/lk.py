@@ -114,7 +114,7 @@ def prepare_frame(img: torch.Tensor, params: LKParams) -> PreparedFrame:
     (B, H, W), one frame per stream: every level keeps the stream axis."""
     _check_params(params)
     pad = _frame_pad(params)
-    pyr = build_pyramid(img.to(torch.float32), params.max_level)
+    pyr = build_pyramid(img.to(torch.float32), params.max_level, quantize_u8=True)
     imgs, dxs, dys = [], [], []
     for lv in pyr:
         dx, dy = scharr_deriv(lv)

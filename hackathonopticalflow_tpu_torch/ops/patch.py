@@ -2,7 +2,9 @@
 hackathonopticalflow_tpu/ops/patch.py's extract_patches,
 extract_patches_multi and blend_bilinear, through the `patch_bilinear`
 kernel), integer-origin slabs (its extract_slabs and extract_slabs_rect,
-through the `gather_rects` kernel) and windows at the static measurement
+through the `gather_rects` kernel), windows at integer offsets inside
+per-point slabs (its select_windows, plain torch as JAX's is XLA) and
+windows at the static measurement
 grid (port of what
 hackathonopticalflow_tpu/ops/grid_patch.py::extract_grid_templates_lanes
 computes; the JAX package builds that one in XLA, not Pallas).
@@ -27,6 +29,7 @@ __all__ = [
     "extract_patches_multi",
     "extract_slabs",
     "extract_slabs_rect",
+    "select_windows",
 ]
 
 
@@ -61,6 +64,22 @@ def extract_slabs_rect(img: torch.Tensor, top_left_int: torch.Tensor, size_h: in
 def extract_slabs(img: torch.Tensor, top_left_int: torch.Tensor, size: int) -> torch.Tensor:
     """(N, size, size) slabs: extract_slabs_rect with a square."""
     return extract_slabs_rect(img, top_left_int, size, size)
+
+
+def select_windows(
+    slabs: torch.Tensor, offsets: torch.Tensor, win_h: int, win_w: int, margin2: int
+) -> torch.Tensor:
+    """(N, win_h+1, win_w+1) windows of per-point slabs (N, S, S) at
+    integer offsets (N, 2) [ox, oy], each clipped to [0, margin2]: what
+    the JAX package's masked static slices compute, by indexing. The
+    result adds 0.0 as that sum of masked slices does (-0.0 becomes
+    +0.0)."""
+    n = slabs.shape[0]
+    dev = slabs.device
+    off = torch.clamp(offsets.to(torch.int64), 0, margin2)
+    ys = off[:, 1, None] + torch.arange(win_h + 1, device=dev)
+    xs = off[:, 0, None] + torch.arange(win_w + 1, device=dev)
+    return slabs[torch.arange(n, device=dev)[:, None, None], ys[:, :, None], xs[:, None, :]] + 0.0
 
 
 def _axis_bases(coords: np.ndarray, level: int, off: float):

@@ -6,7 +6,7 @@ four-stream 1080p batch runner, on one CUDA GPU.
 Run from the repository root:
 
     python3 profile_torch_scan.py [--path sparse|dense|tracker|app|ego|batch] [--pairs 8] [--out PATH]
-        [--warp-mode auto|exact|packed|pallas|pallas_bf16|image|hybrid]
+        [--warp-mode auto|exact|packed|pallas|pallas_bf16|image|hybrid] [--gpu-geometry]
 
 Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip:
 `lk_grid_flow_video` at the production params (--path sparse, the
@@ -18,7 +18,9 @@ default), `farneback_flow_video` at the reference FarnebackParams in
 off, its frames read from host memory (--path app; host API calls are
 also given per chunk) or ego_motion_track's geometry at OdometryConfig()
 on chip_smoke.py's 3D-scene track table of `--pairs` + 1 frames and 256
-slots (--path ego; a frame per pair) or the batch runner's `run_batch`
+slots (--path ego; a frame per pair; keyframes on the GPU and windows on
+the host, as ego_motion_track's default, or with --gpu-geometry the
+windows on the GPU too) or the batch runner's `run_batch`
 at the production params on chip_smoke.py's four phase-21 streams cut to
 `--pairs` + 1 frames, read from host memory (--path batch; a step, 4
 pairs, per pair index; its counts include run_batch's warm-up step, so
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib
 import json
 import subprocess
 import time
@@ -72,10 +75,12 @@ from hackathonopticalflow_tpu_torch.core import (
     measurement_grid,
 )
 from hackathonopticalflow_tpu_torch.flow import dense, lk_grid, tracker
-from hackathonopticalflow_tpu_torch.ops import farneback as fb
 from hackathonopticalflow_tpu_torch.ops import features
 from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
+
+# the package's ops/__init__ re-exports a function named farneback
+fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
 
 KINDS = (
     ("lk_level", ("lk_level",)),
@@ -179,7 +184,7 @@ def tracker_setup(dev, pairs: int):
     """The tracker over `pairs` 1080p steps and its stage timer."""
     params = TrackerParams()
     clip = make_clip(dev)[: pairs + 1]
-    s0 = tracker.track_step(tracker.init_tracker(params), clip[0], clip[0], params, device=dev)
+    s0 = tracker.track_step(tracker.init_tracker(params, dev), clip[0], clip[0], params, device=dev)
 
     def scan():
         return tracker.track_video(clip, params, s0, device=dev)
@@ -238,9 +243,11 @@ def app_setup(dev, pairs: int):
     return scan, stages, f"1080p, chunks of {chunk}"
 
 
-def ego_setup(dev, pairs: int):
+def ego_setup(dev, pairs: int, gpu_geometry: bool = False):
     """The ego-motion geometry over a 3D-scene table of `pairs` + 1 1080p
-    frames and its stage timer."""
+    frames and its stage timer: keyframes on the GPU and the windows on
+    the host (the default route), or with `gpu_geometry` the windows on
+    the GPU too."""
     from hackathonopticalflow_tpu_torch.nav import odometry as odo
     from hackathonopticalflow_tpu_torch.nav.camera import Pinhole
 
@@ -248,9 +255,10 @@ def ego_setup(dev, pairs: int):
     cam = Pinhole.from_fov(W, H, 155.0)
     cfg = odo.OdometryConfig()
     table = odo.TrackTable(*scene_table(n_frames=pairs + 1)[0])
+    geo = dev if gpu_geometry else torch.device("cpu")
 
     def scan():
-        return odo.ego_motion_track(None, params, cam, cfg, table=table, device=dev)
+        return odo.ego_motion_track(None, params, cam, cfg, table=table, device=dev, geometry_device=geo)
 
     def stages():
         clip = make_clip(dev)[: pairs + 1]
@@ -258,13 +266,14 @@ def ego_setup(dev, pairs: int):
         out = {"collect_tracks": cuda_ms(lambda: odo.collect_tracks(clip, params, device=dev), 2),
                "select_keyframes": cuda_ms(lambda: odo.select_keyframes(table, cam, cfg, dev), 3)}
         wins = [odo.build_window(table, kf[i : i + cfg.window], cfg) for i in range(len(kf) - cfg.window + 1)]
-        obs = cam.normalize(np.stack([w[0] for w in wins])).to(dev)
-        mask = torch.from_numpy(np.stack([w[1] for w in wins])).to(dev)
+        obs = cam.normalize(np.stack([w[0] for w in wins])).to(geo)
+        mask = torch.from_numpy(np.stack([w[1] for w in wins])).to(geo)
         solved = odo.resolve_config(cfg, cam)
-        out[f"_window_solve of {len(wins)} windows"] = cuda_ms(lambda: odo._window_solve(obs, mask, solved), 3)
+        out[f"_window_solve of {len(wins)} windows on {geo.type}"] = cuda_ms(
+            lambda: odo._window_solve(obs, mask, solved), 3)
         return out
 
-    return scan, stages, "1080p, 256 slots"
+    return scan, stages, f"1080p, 256 slots, windows on {geo.type}"
 
 
 def batch_setup(dev, pairs: int):
@@ -306,11 +315,15 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--warp-mode", default="auto", help="FarnebackParams.warp_mode of --path dense")
+    ap.add_argument("--gpu-geometry", action="store_true",
+                    help="--path ego: solve the windows on the GPU (geometry_device) instead of the host")
     args = ap.parse_args()
     if args.out is None:
         suffix = "" if args.path == "sparse" else f"_{args.path}"
         if args.path == "dense" and args.warp_mode != "auto":
             suffix += f"_{args.warp_mode}"
+        if args.path == "ego" and args.gpu_geometry:
+            suffix += "_gpu"
         args.out = Path(f"build/profile_torch_scan{suffix}.txt")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_scan: needs a CUDA GPU")
@@ -321,6 +334,8 @@ def main() -> int:
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     extra = {"warp_mode": args.warp_mode} if args.path == "dense" else {}
+    if args.path == "ego":
+        extra = {"gpu_geometry": args.gpu_geometry}
     scan, stages_fn, size = SETUPS[args.path](dev, args.pairs, **extra)
 
     scan()  # builds the kernel, warms the caching allocator

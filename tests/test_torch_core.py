@@ -74,11 +74,29 @@ def test_production_lk_params_match_jax():
         assert getattr(t, f.name) == getattr(j, f.name), f.name
 
 
-@pytest.mark.parametrize(
-    "h,w,step", [(1080, 1920, 30), (270, 480, 30), (271, 479, 30), (720, 1280, 30), (97, 131, 16)]
-)
+GRID_SIZES = [(1080, 1920, 30), (270, 480, 30), (271, 479, 30), (720, 1280, 30), (97, 131, 16)]
+
+
+@pytest.mark.parametrize("h,w,step", GRID_SIZES)
 def test_measurement_grid_matches_jax(h, w, step):
     got = tcore.measurement_grid(h, w, step)
     want = jcore.measurement_grid(h, w, step)
     assert got.dtype == want.dtype == np.float32
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("h,w,step", GRID_SIZES)
+def test_grid_shape_matches_jax(h, w, step):
+    from hackathonopticalflow_tpu.core.grid import grid_shape
+
+    got = tcore.grid_shape(h, w, step)
+    assert got == grid_shape(h, w, step)
+    assert got[0] * got[1] == len(tcore.measurement_grid(h, w, step))
+
+
+def test_win_area_matches_jax():
+    """LKParams.win_area at the default, the tracker's and a rectangular
+    window."""
+    for t, j in ((tcore.LKParams(), jcore.LKParams()), (tcore.TRACKER_LK, J_TRACKER_LK),
+                 (tcore.LKParams(win_size=(21, 9)), jcore.LKParams(win_size=(21, 9)))):
+        assert t.win_area == j.win_area == t.win_size[0] * t.win_size[1]

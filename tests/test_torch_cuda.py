@@ -8,13 +8,14 @@ conftest:
 """
 
 import dataclasses
+import importlib
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import sample_texture, smooth_texture, tracker_points
+from chip_smoke import sample_texture, scene_table, smooth_texture, tracker_points
 
 from hackathonopticalflow_tpu_torch.core import (
     TRACKER_LK,
@@ -26,13 +27,15 @@ from hackathonopticalflow_tpu_torch.core import (
 )
 from hackathonopticalflow_tpu_torch.flow import dense as tdense
 from hackathonopticalflow_tpu_torch.flow import tracker as ttr
-from hackathonopticalflow_tpu_torch.ops import farneback as tfb
 from hackathonopticalflow_tpu_torch.ops import lk as tlk
 from hackathonopticalflow_tpu_torch.ops import patch as tpatch
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
+
+# the package's ops/__init__ re-exports a function named farneback
+tfb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
 
 PARAMS = LKParams(grid_step=30, compute_err=False)
 
@@ -507,3 +510,23 @@ def test_two_gloo_ranks_share_the_gpu(cuda_device):
                             lk=PARAMS, device=cuda_device)
         for field, value in zip(want._fields, want):
             assert torch.equal(getattr(out[r]["grid"], field)[0], value.cpu()), (r, field)
+
+
+@pytest.mark.cuda
+def test_ego_motion_default_route_matches_gpu_geometry(cuda_device):
+    """ego_motion_track with device="cuda" on scene_table()'s 3D scene:
+    the default route (keyframes on the GPU, windows on the host) against
+    geometry_device="cuda" (windows on the GPU too): identical keyframes,
+    centres within 1e-3 of the span (their RANSAC draws come from the
+    two devices' generators)."""
+    from hackathonopticalflow_tpu_torch.nav import odometry as todo
+    from hackathonopticalflow_tpu_torch.nav.camera import Pinhole
+
+    table = todo.TrackTable(*scene_table()[0])
+    cam = Pinhole.from_fov(1920, 1080, 155.0)
+    host = todo.ego_motion_track(None, TrackerParams(), cam, table=table, device=cuda_device)
+    card = todo.ego_motion_track(None, TrackerParams(), cam, table=table, device=cuda_device,
+                                 geometry_device=cuda_device)
+    assert host.kf_idx.tolist() == card.kf_idx.tolist() and len(host.kf_idx) >= 4
+    span = np.linalg.norm(host.centers - host.centers[0], axis=-1).max()
+    assert np.abs(host.centers - card.centers).max() <= 1e-3 * span

@@ -29,13 +29,13 @@ from hackathonopticalflow_tpu_torch import convert
 from hackathonopticalflow_tpu_torch import core as tcore
 from hackathonopticalflow_tpu_torch.flow import dense as tdense
 from hackathonopticalflow_tpu_torch.nav.normalize import radial_normalize_dense
-from hackathonopticalflow_tpu_torch.ops import farneback as tfb
 from hackathonopticalflow_tpu_torch.ops import image as timage
 from hackathonopticalflow_tpu_torch.ops import warp as twarp
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 from test_torch_prepare import smooth_texture
 
-# the JAX package's ops/__init__ re-exports a function named farneback
+# each package's ops/__init__ re-exports a function named farneback
+tfb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
 jfb = importlib.import_module("hackathonopticalflow_tpu.ops.farneback")
 
 torch.set_num_threads(1)

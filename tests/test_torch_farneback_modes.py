@@ -31,7 +31,6 @@ from hackathonopticalflow_tpu.ops.warp_pallas import warp_bilinear_pallas
 from hackathonopticalflow_tpu_torch import convert
 from hackathonopticalflow_tpu_torch import core as tcore
 from hackathonopticalflow_tpu_torch.flow import dense as tdense
-from hackathonopticalflow_tpu_torch.ops import farneback as tfb
 from hackathonopticalflow_tpu_torch.ops import warp as twarp
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import (
     _corners,
@@ -41,7 +40,8 @@ from hackathonopticalflow_tpu_torch.ops.warp_bilinear import (
 )
 from test_torch_farneback import DRIFT, H, W, _clip, _epe_ok, _rel_per_channel, _smooth_flow
 
-# the JAX package's ops/__init__ re-exports a function named farneback
+# each package's ops/__init__ re-exports a function named farneback
+tfb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
 jfb = importlib.import_module("hackathonopticalflow_tpu.ops.farneback")
 
 torch.set_num_threads(1)

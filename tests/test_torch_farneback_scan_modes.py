@@ -18,7 +18,6 @@ import jax
 from hackathonopticalflow_tpu.flow import dense as jdense
 from hackathonopticalflow_tpu_torch import core as tcore
 from hackathonopticalflow_tpu_torch.flow import dense as tdense
-from hackathonopticalflow_tpu_torch.ops import farneback as tfb
 from test_torch_farneback import H, W, _epe_ok
 from test_torch_farneback_modes import (  # noqa: F401  (fixtures)
     COEF,
@@ -28,6 +27,7 @@ from test_torch_farneback_modes import (  # noqa: F401  (fixtures)
     jax_pairwise,
     jax_pyramids,
     jfb,
+    tfb,
 )
 
 torch.set_num_threads(1)

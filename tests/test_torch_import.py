@@ -5,6 +5,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 
 _PROBE = r"""
@@ -116,3 +118,31 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+_REEXPORTS = r"""
+import json, sys
+for name in ("jax", "hackathonopticalflow_tpu"):
+    sys.modules[name] = None
+import importlib
+mod = importlib.import_module("hackathonopticalflow_tpu_torch." + sys.argv[1])
+from hackathonopticalflow_tpu_torch import kernels
+print(json.dumps({"all": mod.__all__, "missing": [n for n in mod.__all__ if not hasattr(mod, n)],
+                  "loaded": sorted(kernels._loaded)}))
+"""
+
+
+@pytest.mark.parametrize("sub", ["ops", "flow"])
+def test_reexports_match_jax(sub):
+    """The port's ops and flow re-export the JAX package's names, in its
+    order, each bound; importing them (without jax) builds no kernel."""
+    import importlib
+    import json
+
+    want = importlib.import_module(f"hackathonopticalflow_tpu.{sub}").__all__
+    proc = subprocess.run(
+        [sys.executable, "-c", _REEXPORTS, sub], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"all": want, "missing": [], "loaded": []}

@@ -261,3 +261,62 @@ def test_odometry_config_and_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         todo.ego_motion_track(np.zeros((3, 8, 8), np.uint8), convert.tracker_params(jconfig.TrackerParams()),
                               tcam.Pinhole.from_fov(8, 8))
+
+
+class _Reached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("scale_votes", [False, True])
+@pytest.mark.parametrize("geometry_device", [None, "meta"], ids=["default", "meta"])
+def test_geometry_device_placement(scale_votes, geometry_device, monkeypatch):
+    """Keyframes are picked on `device`, every window solve (the batched
+    _window_solve, or window_ba with scale votes) runs on
+    `geometry_device`, the CPU unless the caller passes another. The
+    "meta" device stands in for the GPU: select_keyframes records it and
+    computes on the CPU; a solve that reaches "meta" records it and stops
+    the run. By default the result equals the all-CPU run's."""
+    seen = {"keyframes": [], "solves": []}
+    real_kf = todo.select_keyframes
+
+    def select_keyframes(table, cam, cfg, device):
+        seen["keyframes"].append(torch.device(device))
+        return real_kf(table, cam, cfg, "cpu")
+
+    def recorder(real):
+        def solve(obs, mask, cfg):
+            seen["solves"].append(obs.device)
+            if obs.device.type == "meta":
+                raise _Reached
+            return real(obs, mask, cfg)
+        return solve
+
+    tt = todo.TrackTable(*scene_table(seed=2, n_frames=12, slots=48, h=180, w=320)[0])
+    cam = tcam.Pinhole.from_fov(320, 180, 155.0)
+    cfg = todo.OdometryConfig(scale_votes=scale_votes)
+    want = todo.ego_motion_track(None, None, cam, cfg, table=tt, device="cpu")
+    monkeypatch.setattr(todo, "select_keyframes", select_keyframes)
+    monkeypatch.setattr(todo, "_window_solve", recorder(todo._window_solve))
+    monkeypatch.setattr(todo, "window_ba", recorder(todo.window_ba))
+    kw = {} if geometry_device is None else {"geometry_device": geometry_device}
+    if geometry_device is None:
+        got = todo.ego_motion_track(None, None, cam, cfg, table=tt, device="meta", **kw)
+        assert got.kf_idx.tolist() == want.kf_idx.tolist() and len(got.kf_idx) >= 3
+        assert np.array_equal(got.centers, want.centers) and np.array_equal(got.raw_centers, want.raw_centers)
+        assert set(seen["solves"]) == {torch.device("cpu")}
+        # one solve a window with scale votes, else one a group of same-size windows
+        groups = {len(st["raw_rvecs"]) for st in want.stats}
+        assert len(seen["solves"]) == (len(want.stats) if scale_votes else len(groups))
+    else:
+        with pytest.raises(_Reached):
+            todo.ego_motion_track(None, None, cam, cfg, table=tt, device="cpu", **kw)
+        assert seen["solves"] == [torch.device("meta")]
+    assert seen["keyframes"] == [torch.device("meta" if geometry_device is None else "cpu")]
+
+
+def test_geometry_device_cuda_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tt = todo.TrackTable(*scene_table(seed=2, n_frames=12, slots=48, h=180, w=320)[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        todo.ego_motion_track(None, None, tcam.Pinhole.from_fov(320, 180, 155.0), todo.OdometryConfig(),
+                              table=tt, device="cpu", geometry_device="cuda")

@@ -136,3 +136,20 @@ def test_patch_bilinear_rejects_bad_inputs(bad):
         size = 40
     with pytest.raises((TypeError, ValueError)):
         patch_bilinear(planes, tl, size, size, False)
+
+
+@pytest.mark.parametrize("win_h,win_w,margin2", [(15, 15, 16), (7, 9, 4)])
+def test_select_windows_matches_jax(win_h, win_w, margin2):
+    """Windows at integer offsets inside per-point slabs, offsets past
+    either end of [0, margin2] included: identical to JAX's masked static
+    slices, the sign of zero too."""
+    rng = np.random.RandomState(11)
+    n, s = 24, max(win_h, win_w) + margin2 + 3
+    slabs = rng.uniform(-60, 255, (n, s, s)).astype(np.float32)
+    slabs[:, ::5, ::3] = -0.0
+    offsets = rng.randint(-4, margin2 + 5, (n, 2)).astype(np.int32)
+    offsets[:4] = [[-4, 0], [margin2 + 4, margin2], [0, -1], [margin2, margin2 + 1]]
+    want = np.asarray(jpatch.select_windows(jnp.asarray(slabs), jnp.asarray(offsets), win_h, win_w, margin2))
+    got = tpatch.select_windows(torch.from_numpy(slabs), torch.from_numpy(offsets), win_h, win_w, margin2).numpy()
+    assert got.shape == want.shape == (n, win_h + 1, win_w + 1)
+    assert np.array_equal(got, want) and np.array_equal(np.signbit(got), np.signbit(want))

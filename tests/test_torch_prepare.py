@@ -12,10 +12,12 @@ import jax.numpy as jnp
 
 from hackathonopticalflow_tpu.core import LKParams, measurement_grid
 from hackathonopticalflow_tpu.ops import lk as jlk
+from hackathonopticalflow_tpu.ops import pyramid as jpyr
 from hackathonopticalflow_tpu.ops.grid_patch import extract_grid_templates_lanes
 from hackathonopticalflow_tpu_torch import convert
 from hackathonopticalflow_tpu_torch import core as tcore
 from hackathonopticalflow_tpu_torch.ops import lk as tlk
+from hackathonopticalflow_tpu_torch.ops import pyramid as tpyr
 from hackathonopticalflow_tpu_torch.ops.image import reflect101_pad
 from hackathonopticalflow_tpu_torch.ops.patch import extract_grid_templates
 
@@ -78,6 +80,35 @@ def test_reflect101_pad_matches_numpy(n, pad):
     ref = np.pad(x, pad, mode="reflect")
     got = reflect101_pad(torch.from_numpy(x), pad).numpy()
     assert np.array_equal(ref, got)
+
+
+# JAX's CPU sep_conv2d runs the y pass first, the port the x pass (ROADMAP
+# fault 5): unrounded levels of values up to 255 differ by a few float32
+# ulps there
+PYR_ATOL = 4 * float(np.spacing(np.float32(255.0)))
+
+
+@pytest.mark.parametrize("quantize_u8", [None, True], ids=["default", "u8"])
+@pytest.mark.parametrize("shape", [(37, 50), (36, 64), (2, 37, 51)])
+def test_pyramid_matches_jax(shape, quantize_u8):
+    """pyr_down and build_pyramid on uniform float input, odd and even
+    sizes, at their default (the unrounded pyrDown) and with quantize_u8:
+    the u8 levels identical, the unrounded within PYR_ATOL."""
+    x = np.random.RandomState(0).uniform(0, 255, shape).astype(np.float32)
+    kw = {} if quantize_u8 is None else {"quantize_u8": quantize_u8}
+    want = [np.asarray(lv) for lv in jpyr.build_pyramid(jnp.asarray(x), 3, **kw)]
+    got = [lv.numpy() for lv in tpyr.build_pyramid(torch.from_numpy(x), 3, **kw)]
+    down = tpyr.pyr_down(torch.from_numpy(x), **kw).numpy()
+    assert np.array_equal(down, got[1])
+    assert np.array_equal(np.asarray(jpyr.pyr_down(jnp.asarray(x), **kw)), want[1])
+    for lv, (w, g) in enumerate(zip(want, got)):
+        assert g.dtype == np.float32 and g.shape == w.shape, lv
+        if quantize_u8:
+            assert np.array_equal(g, w), lv
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=PYR_ATOL)
+    if quantize_u8 is None:
+        assert not np.array_equal(got[1], np.floor(got[1] + 0.5))  # unrounded
 
 
 @pytest.mark.parametrize("shape", [(270, 480), (271, 479)])

@@ -186,7 +186,7 @@ def test_track_seed_step_matches_jax(jax_tracker):
     integer corners."""
     params = convert.tracker_params(jax_tracker["params"])
     f0 = torch.from_numpy(jax_tracker["frames"][0])
-    s0 = ttr.track_step(ttr.init_tracker(params), f0, f0, params, device="cpu")
+    s0 = ttr.track_step(ttr.init_tracker(params, device="cpu"), f0, f0, params, device="cpu")
     ref = jax_tracker["s0"]
     assert int(ref.alive.sum()) == params.features.max_corners
     assert np.array_equal(s0.alive.numpy(), ref.alive)
@@ -226,7 +226,7 @@ def test_track_video_equals_steps():
     track_step calls exactly, state and history."""
     params = convert.tracker_params(_tracker_params(TRACKER_LK))
     frames = torch.from_numpy(_clip()[:4])
-    s = ttr.track_step(ttr.init_tracker(params), frames[0], frames[0], params, device="cpu")
+    s = ttr.track_step(ttr.init_tracker(params, device="cpu"), frames[0], frames[0], params, device="cpu")
     s_scan, (heads, alive, length) = ttr.track_video(frames, params, s, device="cpu")
     for t in range(1, frames.shape[0]):
         s = ttr.track_step(s, frames[t - 1], frames[t], params, device="cpu")
@@ -282,7 +282,7 @@ def test_spawn_writes_only_taken_rows():
     nothing else changes (the JAX package's dummy rows for untaken
     corners target that same slot)."""
     t, l = 8, 4
-    state = ttr.init_tracker(TrackerParams(max_tracks=t, trajectory_len=l))
+    state = ttr.init_tracker(TrackerParams(max_tracks=t, trajectory_len=l), device="cpu")
     traj = torch.arange(t * l * 2, dtype=torch.float32).reshape(t, l, 2)
     alive = torch.ones(t, dtype=torch.bool)
     alive[-1] = False
@@ -302,8 +302,9 @@ ENTRY_POINTS = {
     "lk_grid_flow_video": lambda f, p: tgrid.lk_grid_flow_video(f, p),
     "farneback_flow": lambda f, p: tdense.farneback_flow(f[0], f[1]),
     "farneback_flow_video": lambda f, p: tdense.farneback_flow_video(f),
-    "track_step": lambda f, p: ttr.track_step(ttr.init_tracker(), f[0], f[1]),
+    "track_step": lambda f, p: ttr.track_step(ttr.init_tracker(device="cpu"), f[0], f[1]),
     "track_video": lambda f, p: ttr.track_video(f),
+    "init_tracker": lambda f, p: ttr.init_tracker(),
 }
 
 

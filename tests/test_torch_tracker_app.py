@@ -92,7 +92,7 @@ def test_poses_follow_the_tracks(clip, port_full):
     reader = tapp.VideoReader(clip)
     grays = torch.from_numpy(np.stack([to_gray(reader.read()) for _ in range(FRAMES)]))
     params = convert.tracker_params(JPARAMS)
-    s0 = track_step(init_tracker(params), grays[0], grays[0], params, device="cpu")
+    s0 = track_step(init_tracker(params, device="cpu"), grays[0], grays[0], params, device="cpu")
     state, (heads, alive, _) = track_video(grays, params, s0, device="cpu")
     heads = torch.cat([_heads(s0)[None], heads])
     alive = torch.cat([s0.alive[None], alive])
