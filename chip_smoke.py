@@ -155,7 +155,26 @@ Phases, in order; any failure exits non-zero:
 23. a world of one NCCL rank (every collective a real NCCL call, the
     halo ring a self-permutation): 22's (a)-(c) on 1 x 1 and (1,) meshes,
     the grid flow and the distributed BA identical to the single-device
-    functions, the tiled flow and the ring BA within 22's bounds.
+    functions, the tiled flow and the ring BA within 22's bounds;
+24. the captured steps (utils/graphs.py: each step of a path one CUDA
+    graph, captured at its first call and replayed): for the sparse scan,
+    the pathfinder app's run_batched and compute_frame, the batch
+    runner, the dense scan in every coefficient mode, "image" and
+    "hybrid" pair by pair, the dense viewer's flows, the tracker scan,
+    the tracker app and collect_tracks, the replayed run identical to the
+    eager one (every step's __wrapped__) over the whole clip, and again
+    with every replay under torch.cuda.set_sync_debug_mode("error"); each
+    form's fps (in turns), host launches and syncs a pair or step, and the
+    graph pool's bytes.
+
+Phases 4-21 drive the paths as a user does, through their graphs: a
+path's counted run starts with every graph dropped, so its kernels'
+wrappers count the launches that the warm-ups and captures make
+(`launches`), and the kernels' executions on the device add each graph
+replay's recorded launches (`executions`); the checks hold the replays
+to the launches a pair or step needs. A comparison with the plain
+versions runs the eager form (chip_smoke.eager) with the plain versions
+patched in.
 
 Each kernel's record carries its device time per shape of the main paths
 (shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
@@ -182,11 +201,13 @@ the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 from unittest import mock
 
 import numpy as np
@@ -460,6 +481,78 @@ def host_seconds(fn) -> float:
     return time.perf_counter() - t0
 
 
+# the modules whose steps run as captured graphs (utils/graphs.py)
+GRAPH_MODULES = (
+    "hackathonopticalflow_tpu_torch.flow.lk_grid",
+    "hackathonopticalflow_tpu_torch.flow.dense",
+    "hackathonopticalflow_tpu_torch.flow.tracker",
+    "hackathonopticalflow_tpu_torch.apps.batch_runner",
+)
+
+
+@contextlib.contextmanager
+def eager(*objs):
+    """Inside, every captured step of GRAPH_MODULES, and every graphed
+    attribute of objs (an app's chunk), runs as its __wrapped__: the
+    eager form, one launch per op, which the checks hold the graphs to and
+    which runs the kernels' plain versions where they are patched in."""
+    from hackathonopticalflow_tpu_torch.utils.graphs import Graphed
+
+    with contextlib.ExitStack() as stack:
+        for target in [importlib.import_module(m) for m in GRAPH_MODULES] + list(objs):
+            for name, value in list(vars(target).items()):
+                if isinstance(value, Graphed):
+                    stack.enter_context(mock.patch.object(target, name, value.__wrapped__))
+        yield
+
+
+@contextlib.contextmanager
+def strict_replays():
+    """Inside, every call of a graphed function (its input copies, replay
+    and output copies) runs under torch.cuda.set_sync_debug_mode("error"):
+    a host sync there raises. For runs whose graphs are captured already."""
+    from hackathonopticalflow_tpu_torch.utils.graphs import Graphed
+
+    call = Graphed.__call__
+
+    def strict(self, *args, **kwargs):
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+
+    with mock.patch.object(Graphed, "__call__", strict):
+        yield
+
+
+class Runs(NamedTuple):
+    """A run's kernel counts by kernel name. launched: what the kernels'
+    wrappers counted (eager calls, and launches recorded into a graph by
+    its capture); ran: the kernels' executions on the device (eager
+    launches, and the launches that graph replays ran); replayed: the part
+    of ran that replays ran."""
+
+    launched: dict
+    ran: dict
+    replayed: dict
+
+
+def counted(fn):
+    """(fn(), Runs): fn runs with every captured graph dropped first, so
+    that it captures the graphs it replays and its wrappers count the
+    kernels' launches, and with every count at 0."""
+    from hackathonopticalflow_tpu_torch.utils import graphs
+
+    graphs.clear_caches()
+    torch.cuda.empty_cache()
+    _zero_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, Runs(_wrapper_counts(), _launch_counts(), graphs.launch_stats()["replayed"])
+
+
 def merge_records(dst: dict, src: dict) -> None:
     """dst.update(src), merging the per-shape dicts (shape_*) key by key."""
     for k, v in src.items():
@@ -498,8 +591,6 @@ def sparse_phases(dev, clip) -> dict:
     from hackathonopticalflow_tpu_torch.flow import lk_grid
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
-    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
 
     params = LKParams(grid_step=30, compute_err=False)
     pts_np = measurement_grid(H, W, params.grid_step)
@@ -545,14 +636,14 @@ def sparse_phases(dev, clip) -> dict:
         status = st_p
 
     # ---- 4. main path ----
-    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
-    res = lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev)
-    one = lk_grid.lk_grid_flow(clip[0], clip[1], pts, lk=params, device=dev)
-    torch.cuda.synchronize()
-    main_launches = lk_level.launches
-    log(f"sparse main path: lk_level launches {main_launches}, warp_bilinear launches "
-        f"{warp_bilinear.launches}, patch_bilinear launches {patch_bilinear.launches}")
-    if main_launches < 3 * (N_FRAMES - 1):
+    (res, one), cnt = counted(lambda: (lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev),
+                                        lk_grid.lk_grid_flow(clip[0], clip[1], pts, lk=params, device=dev)))
+    main_launches = cnt.launched["lk_level"]
+    log(f"sparse main path: lk_level launches {main_launches} (warm-ups and captures), executions "
+        f"{cnt.ran['lk_level']} of which graph replays {cnt.replayed.get('lk_level', 0)} ({3 * N_FRAMES} "
+        f"expected: 3 a pair, the scan's 48 and the pair's one), warp_bilinear launches "
+        f"{cnt.launched['warp_bilinear']}, patch_bilinear launches {cnt.launched['patch_bilinear']}")
+    if main_launches < 3 or cnt.replayed.get("lk_level", 0) != 3 * N_FRAMES:
         raise SystemExit("the sparse main path did not run the lk_level kernel at every level")
     for name, v in res._asdict().items():
         if v.is_floating_point() and not bool(torch.isfinite(v).all()):
@@ -571,7 +662,7 @@ def sparse_phases(dev, clip) -> dict:
         if not torch.equal(getattr(one, name), getattr(res, name)[0]):
             raise SystemExit(f"lk_grid_flow disagrees with the scan's first step on {name}")
 
-    with mock.patch.object(lk_mod, "lk_level", lk_level_reference):
+    with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference):
         plain = lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
     good_agree = float((plain.good == res.good[:PLAIN_PAIRS]).double().mean())
     raw_diff = float((plain.raw_next_pts - res.raw_next_pts[:PLAIN_PAIRS]).abs().max())
@@ -583,7 +674,7 @@ def sparse_phases(dev, clip) -> dict:
     # ---- 5. times ----
     scan_s = min(host_seconds(lambda: lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev))
                  for _ in range(3))
-    with mock.patch.object(lk_mod, "lk_level", lk_level_reference):
+    with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference):
         lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
         plain_s = min(
             host_seconds(
@@ -612,6 +703,7 @@ def sparse_phases(dev, clip) -> dict:
             "hackathonopticalflow_tpu/ops/lk_pallas.py:45",
             "launches": main_launches,
             "launches_by_path": {"sparse": main_launches},
+            "executions_by_path": {"sparse": cnt.ran["lk_level"]},
             "max_abs_err": max_err,
             "ms": sum(level_ms.values()),
             "plain_ms": sum(level_plain_ms.values()),
@@ -649,8 +741,6 @@ def dense_phases(dev, clip) -> dict:
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
     from hackathonopticalflow_tpu_torch.flow import dense
     fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 
     params = FarnebackParams()
@@ -701,16 +791,15 @@ def dense_phases(dev, clip) -> dict:
             + f"eager call to call {call_ms:.4f} ms, plain {call_plain_ms:.4f} ms")
 
     # ---- 7. main path ----
-    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
-    flows = dense.farneback_flow_video(clip, params, device=dev)
-    one = dense.farneback_flow(clip[0], clip[1], params, device=dev)
-    torch.cuda.synchronize()
-    main_launches = warp_bilinear.launches
+    (flows, one), cnt = counted(lambda: (dense.farneback_flow_video(clip, params, device=dev),
+                                          dense.farneback_flow(clip[0], clip[1], params, device=dev)))
+    main_launches = cnt.launched["warp_bilinear"]
     per_pair = params.iterations * (params.levels + 1)
-    log(f"dense main path: warp_bilinear launches {main_launches} "
-        f"({per_pair} per pair expected), lk_level launches {lk_level.launches}, "
-        f"patch_bilinear launches {patch_bilinear.launches}")
-    if main_launches < per_pair * (pairs + 1):
+    log(f"dense main path: warp_bilinear launches {main_launches} (warm-ups and captures), executions "
+        f"{cnt.ran['warp_bilinear']} of which graph replays {cnt.replayed.get('warp_bilinear', 0)} "
+        f"({per_pair} per pair expected), lk_level launches {cnt.launched['lk_level']}, "
+        f"patch_bilinear launches {cnt.launched['patch_bilinear']}")
+    if main_launches < per_pair or cnt.replayed.get("warp_bilinear", 0) != per_pair * (pairs + 1):
         raise SystemExit("the dense main path did not run warp_bilinear at every iteration")
     if flows.shape != (pairs, DENSE_H, DENSE_W, 2) or not bool(torch.isfinite(flows).all()):
         raise SystemExit(f"dense flows: shape {tuple(flows.shape)} or non-finite values")
@@ -722,7 +811,7 @@ def dense_phases(dev, clip) -> dict:
     if not med_epe < TOL_DENSE_EPE_PX:
         raise SystemExit("the dense main path's flow is wrong")
     plain_clip = clip[: DENSE_PLAIN_PAIRS + 1]
-    with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
+    with eager(), mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
         plain = dense.farneback_flow_video(plain_clip, params, device=dev)
     same = bool(torch.equal(plain, flows[:DENSE_PLAIN_PAIRS]))
     log(f"plain path ({DENSE_PLAIN_PAIRS} pairs): identical to the kernel path {same}, "
@@ -732,7 +821,7 @@ def dense_phases(dev, clip) -> dict:
 
     # ---- 8. times ----
     scan_s = min(host_seconds(lambda: dense.farneback_flow_video(clip, params, device=dev)) for _ in range(3))
-    with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
+    with eager(), mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
         plain_s = min(host_seconds(lambda: dense.farneback_flow_video(plain_clip, params, device=dev))
                       for _ in range(3))
     short_s = min(host_seconds(lambda: dense.farneback_flow_video(plain_clip, params, device=dev))
@@ -756,6 +845,7 @@ def dense_phases(dev, clip) -> dict:
             "replaces": "hackathonopticalflow_tpu/ops/warp_pallas.py:207",
             "launches": main_launches,
             "launches_by_path": {"dense": main_launches},
+            "executions_by_path": {"dense": cnt.ran["warp_bilinear"]},
             "max_abs_err": max_err,
             "ms": sum(level_ms.values()),
             "plain_ms": sum(level_plain_ms.values()),
@@ -796,7 +886,6 @@ def tracker_phases(dev, clip) -> dict:
     from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
-    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
 
     params = TrackerParams()
     lk_v1 = dataclasses.replace(params.lk, points_lanes=False)
@@ -889,14 +978,14 @@ def tracker_phases(dev, clip) -> dict:
     # ---- 10. main path ----
     steps = clip.shape[0] - 1
     s0 = tracker.track_step(tracker.init_tracker(params, dev), clip[0], clip[0], params, device=dev)
-    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
-    state, (heads, alive, length) = tracker.track_video(clip, params, s0, device=dev)
-    torch.cuda.synchronize()
-    lk_n, pb_n = lk_level.launches, patch_bilinear.launches
-    log(f"tracker main path ({steps} steps): lk_level launches {lk_n} ({6 * steps} expected), "
-        f"patch_bilinear launches {pb_n} ({8 * steps} expected), warp_bilinear launches "
-        f"{warp_bilinear.launches}")
-    if lk_n != 6 * steps or pb_n != 8 * steps:
+    (state, (heads, alive, length)), cnt = counted(lambda: tracker.track_video(clip, params, s0, device=dev))
+    lk_n, pb_n = cnt.launched["lk_level"], cnt.launched["patch_bilinear"]
+    lk_r, pb_r = cnt.replayed.get("lk_level", 0), cnt.replayed.get("patch_bilinear", 0)
+    log(f"tracker main path ({steps} steps, a graph with detection and one without): lk_level launches {lk_n}, "
+        f"patch_bilinear launches {pb_n} (warm-ups and captures); executions by graph replays: lk_level {lk_r} "
+        f"({6 * steps} expected), patch_bilinear {pb_r} ({8 * steps} expected); warp_bilinear launches "
+        f"{cnt.launched['warp_bilinear']}")
+    if lk_r != 6 * steps or pb_r != 8 * steps or lk_n != 2 * 2 * 6 or pb_n != 2 * 2 * 8:
         raise SystemExit("the tracker's main path did not run both kernels at every level")
     if heads.shape != (steps, params.max_tracks, 2) or not bool(torch.isfinite(heads).all()):
         raise SystemExit(f"tracker heads: shape {tuple(heads.shape)} or non-finite values")
@@ -917,23 +1006,21 @@ def tracker_phases(dev, clip) -> dict:
     short = clip[: TRACKER_PLAIN_STEPS + 1]
     for geometry, lkp in (("centred", params.lk), ("v1", lk_v1)):
         p = dataclasses.replace(params, lk=lkp)
-        lk_level.launches = patch_bilinear.launches = 0
-        got, got_hist = tracker.track_video(short, p, s0, device=dev)
-        torch.cuda.synchronize()
-        n_lk, n_pb = lk_level.launches, patch_bilinear.launches
-        with mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+        (got, got_hist), short_runs = counted(lambda: tracker.track_video(short, p, s0, device=dev))
+        n_lk, n_pb = short_runs.replayed.get("lk_level", 0), short_runs.replayed.get("patch_bilinear", 0)
+        with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
                 mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
             want_state, want_hist = tracker.track_video(short, p, s0, device=dev)
         same = all(torch.equal(getattr(got, f), getattr(want_state, f)) for f in ("traj", "length", "alive"))
         same = same and all(torch.equal(a, b) for a, b in zip(got_hist, want_hist))
         log(f"tracker {geometry}: first {TRACKER_PLAIN_STEPS} steps identical to the plain path {same} "
-            f"(lk_level {n_lk}, patch_bilinear {n_pb} launches), live {int(got.alive.sum())}")
+            f"(lk_level {n_lk}, patch_bilinear {n_pb} executions by graph replays), live {int(got.alive.sum())}")
         if not same or n_lk != 6 * TRACKER_PLAIN_STEPS or n_pb != 8 * TRACKER_PLAIN_STEPS:
             raise SystemExit(f"the tracker's kernel path ({geometry}) disagrees with the plain path")
 
     # ---- 11. times ----
     track_s = min(host_seconds(lambda: tracker.track_video(clip, params, s0, device=dev)) for _ in range(3))
-    with mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+    with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
             mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
         plain_s = min(host_seconds(lambda: tracker.track_video(clip, params, s0, device=dev))
                       for _ in range(3))
@@ -953,6 +1040,7 @@ def tracker_phases(dev, clip) -> dict:
             "replaces": "hackathonopticalflow_tpu/ops/carve_pallas.py:231",
             "launches": pb_n,
             "launches_by_path": {"tracker": pb_n},
+            "executions_by_path": {"tracker": cnt.ran["patch_bilinear"]},
             "max_abs_err": pb_max_err,
             "ms": sum(pb_ms.values()),
             "plain_ms": sum(pb_plain_ms.values()),
@@ -965,6 +1053,7 @@ def tracker_phases(dev, clip) -> dict:
         },
         "lk_level": {
             "launches": lk_n,
+            "executions": cnt.ran["lk_level"],
             "max_abs_err": lk_max_err,
             "shape_ms": {f"tracker {k}": v for k, v in lk_ms.items()},
             "shape_bound_ms": {f"tracker {k}": v for k, v in lk_bound_ms.items()},
@@ -1229,24 +1318,25 @@ def new_scan_phases(dev, clip) -> dict:
     from hackathonopticalflow_tpu_torch.flow import lk_grid
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
     from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
+    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level_reference
+    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear_reference
 
     pts = torch.from_numpy(measurement_grid(H, W, 30)).to(dev)
-    out = {"lk_level_launches": {}, "patch_bilinear_launches": {}}
+    out = {"lk_level_launches": {}, "patch_bilinear_launches": {}, "lk_level_executions": {},
+           "patch_bilinear_executions": {}}
     runs = {"blocked": N_FRAMES, "exact": N_FRAMES, "no_rescue": PLAIN_PAIRS + 1,
             "rescue_levels_1": PLAIN_PAIRS + 1}
     for config, params in new_lk_configs().items():
         frames = clip[: runs[config]]
         pairs = frames.shape[0] - 1
-        lk_level.launches = patch_bilinear.launches = 0
-        res = lk_grid.lk_grid_flow_video(frames, pts, lk=params, device=dev)
-        torch.cuda.synchronize()
-        out["lk_level_launches"][config] = lk_level.launches
-        out["patch_bilinear_launches"][config] = patch_bilinear.launches
-        log(f"{config} scan ({pairs} pairs): lk_level launches {lk_level.launches}, "
-            f"patch_bilinear launches {patch_bilinear.launches}")
-        if lk_level.launches < 3 * pairs:
+        res, cnt = counted(lambda: lk_grid.lk_grid_flow_video(frames, pts, lk=params, device=dev))
+        for k in ("lk_level", "patch_bilinear"):
+            out[f"{k}_launches"][config] = cnt.launched[k]
+            out[f"{k}_executions"][config] = cnt.ran[k]
+        log(f"{config} scan ({pairs} pairs): lk_level launches {cnt.launched['lk_level']}, patch_bilinear "
+            f"launches {cnt.launched['patch_bilinear']} (warm-up and capture); executions lk_level "
+            f"{cnt.ran['lk_level']}, patch_bilinear {cnt.ran['patch_bilinear']}")
+        if cnt.replayed.get("lk_level", 0) != 3 * pairs or cnt.launched["lk_level"] < 3:
             raise SystemExit(f"the {config} scan did not run lk_level at every level")
         for name, v in res._asdict().items():
             if v.is_floating_point() and not bool(torch.isfinite(v).all()):
@@ -1255,7 +1345,7 @@ def new_scan_phases(dev, clip) -> dict:
         epe = torch.linalg.vector_norm(res.raw_next_pts.double() - true_backward(pts), dim=-1)
         med_epe = float(epe[st].median())
         st_frac = float(st.double().mean())
-        with mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+        with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
                 mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
             plain = lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
         good_agree = float((plain.good == res.good[:PLAIN_PAIRS]).double().mean())
@@ -1295,9 +1385,6 @@ def app_phase(dev, clip, scan_fps: float) -> dict:
     from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
     from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
     from hackathonopticalflow_tpu_torch.flow import lk_grid
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
-    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
     from hackathonopticalflow_tpu_torch.viz.layers import draw_sparse_lamps
 
     params = LKParams(grid_step=30, compute_err=False)
@@ -1312,19 +1399,20 @@ def app_phase(dev, clip, scan_fps: float) -> dict:
         return PathfinderApp(cfg, open_reader=lambda path: ClipReader(bgr))
 
     batched = app(max_frames=pairs)
-    batched.warmup(APP_CHUNK)
-    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
-    stats = batched.run_batched(chunk=APP_CHUNK, render=False)
-    torch.cuda.synchronize()
-    launches = lk_level.launches
-    # 3 a pair, the padded tail chunk's pairs included
+    stats, cnt = counted(lambda: batched.run_batched(chunk=APP_CHUNK, render=False))
+    launches = cnt.launched["lk_level"]
+    # 3 a pair, the padded tail chunk's pairs included; the chunk's graph
+    # is captured by run_batched's warm-up and replayed once a chunk
     expected = 3 * APP_CHUNK * -(-pairs // APP_CHUNK)
     counts = stats["danger_counts"]
-    log(f"app run_batched ({stats['frames']} pairs, chunk {APP_CHUNK}): lk_level launches {launches} "
-        f"({expected} expected), warp_bilinear {warp_bilinear.launches}, patch_bilinear "
-        f"{patch_bilinear.launches}; danger counts equal to the scan's good sums {counts == want}, "
-        f"mean {stats['mean_danger_points']:.1f} of {pts.shape[0]}")
-    if launches != expected or stats["frames"] != pairs or counts != want:
+    log(f"app run_batched ({stats['frames']} pairs, chunk {APP_CHUNK}): lk_level launches {launches} (warm-up "
+        f"and capture of the chunk's graph), executions by its replays {cnt.replayed.get('lk_level', 0)} "
+        f"({expected} expected and the warm-up call's {3 * APP_CHUNK}), warp_bilinear "
+        f"{cnt.launched['warp_bilinear']}, patch_bilinear {cnt.launched['patch_bilinear']}; danger counts equal to "
+        f"the scan's good sums {counts == want}, mean {stats['mean_danger_points']:.1f} of {pts.shape[0]}")
+    # the warm-up's call replays its graph once too
+    if (launches != 2 * 3 * APP_CHUNK or cnt.replayed.get("lk_level", 0) != expected + 3 * APP_CHUNK
+            or stats["frames"] != pairs or counts != want):
         raise SystemExit("the app's chunked pipeline disagrees with the scan")
 
     serial = app(max_frames=APP_RUN_PAIRS).run(headless=True, render=False)
@@ -1368,7 +1456,7 @@ def app_phase(dev, clip, scan_fps: float) -> dict:
     log(f"app run_batched {pairs} pairs {H}p (render off): {fps:.2f} fps, best of 3 "
         f"({min(app_s) * 1e3:.1f} ms); production scan (phase 5) {scan_fps:.2f} fps; "
         f"app / scan {fps / scan_fps:.3f}")
-    return {"app_fps": fps, "app_launches": launches}
+    return {"app_fps": fps, "app_launches": launches, "app_executions": cnt.ran["lk_level"]}
 
 
 GEOMETRY_REPS = 3  # geometry timings, best of
@@ -1376,7 +1464,7 @@ GEOMETRY_REPS = 3  # geometry timings, best of
 
 def api_calls(fn) -> tuple[int, dict]:
     """The host's kernel launches and waits on the device during fn(), from
-    torch.profiler: (count of the CUDA API's launch calls, counts of its
+    torch.profiler: (count of the CUDA API's kernel and graph launch calls, counts of its
     synchronize calls by name; a device-to-host copy into pageable memory,
     and a solver's status check, are a stream synchronize each)."""
     import collections
@@ -1387,7 +1475,7 @@ def api_calls(fn) -> tuple[int, dict]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
     names = collections.Counter(e.name for e in prof.events() if e.name.startswith("cuda"))
-    launches = sum(v for k, v in names.items() if k.startswith("cudaLaunch"))
+    launches = sum(v for k, v in names.items() if k.startswith("cudaLaunch") or k == "cudaGraphLaunch")
     return launches, {k: v for k, v in names.items() if "Synchronize" in k}
 
 
@@ -1419,24 +1507,26 @@ def ego_phase(dev, clip, history) -> dict:
     from hackathonopticalflow_tpu_torch.nav import odometry as odo
     from hackathonopticalflow_tpu_torch.nav.camera import Pinhole
     from hackathonopticalflow_tpu_torch.nav.metrics import ate_umeyama
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
 
     params = TrackerParams()
     n_frames = clip.shape[0]
     s0, heads, alive, length = history
-    lk_level.launches = patch_bilinear.launches = 0
-    table = odo.collect_tracks(clip, params, device=dev)
-    torch.cuda.synchronize()
-    lk_n, pb_n = lk_level.launches, patch_bilinear.launches
+    table, cnt = counted(lambda: odo.collect_tracks(clip, params, device=dev))
+    lk_n, pb_n = cnt.ran["lk_level"], cnt.ran["patch_bilinear"]
     got_len = torch.from_numpy(np.arange(n_frames)[:, None] + 1 - table.birth)
     same = (torch.equal(torch.from_numpy(table.pos), torch.cat([_heads(s0)[None], heads]).cpu())
             and torch.equal(torch.from_numpy(table.alive), torch.cat([s0.alive[None], alive]).cpu())
             and torch.equal(got_len, torch.cat([s0.length[None], length]).cpu().to(torch.int64)))
-    log(f"ego collect_tracks ({n_frames} frames): lk_level launches {lk_n} ({6 * n_frames} expected), "
-        f"patch_bilinear launches {pb_n} ({8 * n_frames} expected); heads, alive and lengths identical to "
-        f"phase 10's track_video {same}; births past frame 0 {int((table.birth > 0).sum())}")
-    if not same or lk_n != 6 * n_frames or pb_n != 8 * n_frames:
+    # a step a frame (the seeding step through track_step_prepared's graph,
+    # the rest through track_frame's two), and each capture's warm-up
+    n_captures = cnt.launched["lk_level"] // (2 * 6)
+    log(f"ego collect_tracks ({n_frames} frames): lk_level launches {cnt.launched['lk_level']}, patch_bilinear "
+        f"{cnt.launched['patch_bilinear']} ({n_captures} graphs warmed up and captured); executions lk_level "
+        f"{lk_n} ({6 * (n_frames + n_captures)} expected), patch_bilinear {pb_n} "
+        f"({8 * (n_frames + n_captures)} expected); heads, alive and lengths identical to phase 10's "
+        f"track_video {same}; births past frame 0 {int((table.birth > 0).sum())}")
+    if (not same or n_captures != 3 or lk_n != 6 * (n_frames + n_captures)
+            or pb_n != 8 * (n_frames + n_captures)):
         raise SystemExit("collect_tracks disagrees with track_video")
     track_s = min(host_seconds(lambda: odo.collect_tracks(clip, params, device=dev)) for _ in range(GEOMETRY_REPS))
 
@@ -1503,7 +1593,7 @@ def ego_phase(dev, clip, history) -> dict:
         + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + "; syncs per clip: "
         + ", ".join(f"{k} {v}" for k, v in syncs.items()))
     return {
-        "odometry_launches": (lk_n, pb_n),
+        "odometry_launches": cnt,
         "ego_tracking_fps": (n_frames - 1) / track_s,
         "ego_geometry_ms": times,
         "ego_geometry_syncs": syncs,
@@ -1525,8 +1615,6 @@ def tracker_app_phase(dev, clip, tracker_fps: float) -> dict:
     from hackathonopticalflow_tpu_torch.apps.tracker_app import TrackerApp, TrackerAppConfig
     from hackathonopticalflow_tpu_torch.core import TrackerParams
     from hackathonopticalflow_tpu_torch.flow import tracker
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
 
     params = TrackerParams()
     n = clip.shape[0] - 1
@@ -1537,19 +1625,18 @@ def tracker_app_phase(dev, clip, tracker_fps: float) -> dict:
         return TrackerApp(cfg, open_reader=lambda path: ClipReader(bgr))
 
     full_app = app(max_frames=n)
-    lk_level.launches = patch_bilinear.launches = 0
-    full = full_app.run(headless=True)
-    torch.cuda.synchronize()
-    lk_n, pb_n = lk_level.launches, patch_bilinear.launches
+    full, cnt = counted(lambda: full_app.run(headless=True))
+    lk_n, pb_n = cnt.replayed.get("lk_level", 0), cnt.replayed.get("patch_bilinear", 0)
     s0 = tracker.track_step(tracker.init_tracker(params, dev), clip[0], clip[0], params, device=dev)
     state, _ = tracker.track_video(clip[:n], params, s0, device=dev)
     want_heads = tracker._heads(state)[state.alive].cpu().numpy()
     same = full["final_tracks"] == int(state.alive.sum()) and np.array_equal(full["final_heads"], want_heads)
     poses = full["poses"]
-    log(f"tracker app ({full['frames']} frames): lk_level launches {lk_n} ({6 * n} expected), patch_bilinear "
-        f"launches {pb_n} ({8 * n} expected); final tracks {full['final_tracks']}, equal to track_video's "
-        f"with its heads {same}; {len(poses)} poses, median inliers "
-        f"{float(np.median([p['inliers'] for p in poses])) if poses else 0.0}")
+    log(f"tracker app ({full['frames']} frames): lk_level launches {cnt.launched['lk_level']}, patch_bilinear "
+        f"{cnt.launched['patch_bilinear']} (warm-ups and captures of track_frame's two graphs); executions by "
+        f"graph replays lk_level {lk_n} ({6 * n} expected), patch_bilinear {pb_n} ({8 * n} expected); final "
+        f"tracks {full['final_tracks']}, equal to track_video's with its heads {same}; {len(poses)} poses, median "
+        f"inliers {float(np.median([p['inliers'] for p in poses])) if poses else 0.0}")
     if not same or lk_n != 6 * n or pb_n != 8 * n or not poses:
         raise SystemExit("the tracker app disagrees with track_video")
 
@@ -1575,7 +1662,7 @@ def tracker_app_phase(dev, clip, tracker_fps: float) -> dict:
     log(f"tracker app {n} frames {H}p (pose on, render off): {fps:.2f} fps, best of 3; tracker scan "
         f"(phase 11) {tracker_fps:.2f} fps; app / scan {fps / tracker_fps:.3f}; syncs per frame "
         + ", ".join(f"{k} {v / n:.1f}" for k, v in syncs.items()))
-    return {"tracker_app_launches": (lk_n, pb_n), "tracker_app_fps": fps, "tracker_app_poses": len(poses),
+    return {"tracker_app_launches": cnt, "tracker_app_fps": fps, "tracker_app_poses": len(poses),
             "tracker_app_syncs": syncs}
 
 
@@ -1694,10 +1781,10 @@ def dense_modes_phase(dev, clip) -> dict:
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
     from hackathonopticalflow_tpu_torch.flow import dense
     fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
-    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear_reference
 
     pairs = DENSE_FRAMES - 1
-    out = {"launches": {}, "fps": {}, "median_epe_px": {}}
+    out = {"launches": {}, "executions": {}, "fps": {}, "median_epe_px": {}}
     runs = {"exact": lambda c: dense.farneback_flow_video(c, FarnebackParams(), device=dev)}
     for mode in DENSE_MODES:
         params = FarnebackParams(warp_mode=mode)
@@ -1710,18 +1797,16 @@ def dense_modes_phase(dev, clip) -> dict:
                 return torch.stack([dense.farneback_flow(c[t], c[t + 1], params, device=dev)
                                     for t in range(c.shape[0] - 1)])
             per_pair = params.levels + 1 if mode == "hybrid" else 0
-        warp_bilinear.launches = 0
-        flows = run(clip)
-        torch.cuda.synchronize()
-        launches = warp_bilinear.launches
+        flows, cnt = counted(lambda: run(clip))
+        launches, replayed = cnt.launched["warp_bilinear"], cnt.replayed.get("warp_bilinear", 0)
         med_epe = dense_median_epe(flows)
         ok = flows.shape == (pairs, DENSE_H, DENSE_W, 2) and bool(torch.isfinite(flows).all())
-        log(f"dense {mode}: warp_bilinear launches {launches} ({per_pair * pairs} expected), median EPE "
-            f"{med_epe:.4f} px, finite and shaped {ok}")
-        if not ok or launches != per_pair * pairs or not med_epe < TOL_DENSE_EPE_PX:
+        log(f"dense {mode}: warp_bilinear launches {launches} (warm-up and capture), executions by graph "
+            f"replays {replayed} ({per_pair * pairs} expected), median EPE {med_epe:.4f} px, finite and shaped {ok}")
+        if not ok or replayed != per_pair * pairs or launches != 2 * per_pair or not med_epe < TOL_DENSE_EPE_PX:
             raise SystemExit(f"the dense path in warp_mode {mode!r} is wrong")
         if per_pair:
-            with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
+            with eager(), mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference):
                 plain = run(clip[: DENSE_PLAIN_PAIRS + 1])
             same = bool(torch.equal(plain, flows[:DENSE_PLAIN_PAIRS]))
             log(f"dense {mode} plain path ({DENSE_PLAIN_PAIRS} pairs): identical to the kernel path {same}")
@@ -1729,6 +1814,7 @@ def dense_modes_phase(dev, clip) -> dict:
                 raise SystemExit(f"the dense kernel path in warp_mode {mode!r} disagrees with the plain path")
         runs[mode] = run
         out["launches"][mode] = launches
+        out["executions"][mode] = cnt.ran["warp_bilinear"]
         out["median_epe_px"][mode] = med_epe
     # the scans are host-bound, and the host is shared: every mode, the
     # exact scan among them, timed in turns, best of 2
@@ -1755,9 +1841,6 @@ def dense_viewer_phase(dev, clip, scan_fps: dict) -> dict:
     the scans'."""
     from hackathonopticalflow_tpu_torch.apps.dense_viewer import DenseViewerApp, DenseViewerConfig
     from hackathonopticalflow_tpu_torch.flow import dense, lk_grid
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
-    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
 
     pairs = DENSE_VIEWER_PAIRS
     bgr = ClipReader(clip[: pairs + 1].cpu().numpy()).bgr  # replicated once, outside the app's clock
@@ -1765,14 +1848,14 @@ def dense_viewer_phase(dev, clip, scan_fps: dict) -> dict:
                             max_frames=pairs, device=str(dev))
     app = DenseViewerApp(cfg, open_reader=lambda path: ClipReader(bgr))
     records = []
-    warp_bilinear.launches = lk_level.launches = patch_bilinear.launches = 0
-    stats = app.run(headless=True, on_pair=lambda *a: records.append(a))
-    torch.cuda.synchronize()
-    launches = (warp_bilinear.launches, lk_level.launches, patch_bilinear.launches)
+    stats, cnt = counted(lambda: app.run(headless=True, on_pair=lambda *a: records.append(a)))
+    replayed = tuple(cnt.replayed.get(k, 0) for k in ("warp_bilinear", "lk_level", "patch_bilinear"))
     per_pair = cfg.fb.iterations * (cfg.fb.levels + 1)
-    log(f"dense viewer ({stats['frames']} pairs): warp_bilinear launches {launches[0]} ({per_pair * pairs} "
-        f"expected), lk_level {launches[1]}, patch_bilinear {launches[2]}")
-    if stats["frames"] != pairs or launches[0] != per_pair * pairs or launches[1] < 3 * pairs:
+    log(f"dense viewer ({stats['frames']} pairs, farneback_flow's and lk_grid_flow's graphs): launches (warm-ups "
+        f"and captures) warp_bilinear {cnt.launched['warp_bilinear']}, lk_level {cnt.launched['lk_level']}, "
+        f"patch_bilinear {cnt.launched['patch_bilinear']}; executions by graph replays warp_bilinear "
+        f"{replayed[0]} ({per_pair * pairs} expected), lk_level {replayed[1]}, patch_bilinear {replayed[2]}")
+    if stats["frames"] != pairs or replayed[0] != per_pair * pairs or replayed[1] < 3 * pairs:
         raise SystemExit("the dense viewer did not run its kernels at every pair")
     for t, (flow, sres, frame, contours) in enumerate(records):
         want = dense.farneback_flow(clip[t], clip[t + 1], cfg.fb, device=dev)
@@ -1787,7 +1870,7 @@ def dense_viewer_phase(dev, clip, scan_fps: dict) -> dict:
         f"good share {good:.4f}")
     log(f"dense viewer {pairs} pairs {DENSE_H}p (headless, dense + HSV + contours rendered): {stats['fps']:.2f} fps; "
         "dense scans (phase 19): " + ", ".join(f"{m} {v:.2f}" for m, v in scan_fps.items()) + " fps")
-    return {"dense_viewer_fps": stats["fps"], "dense_viewer_launches": launches}
+    return {"dense_viewer_fps": stats["fps"], "dense_viewer_launches": cnt}
 
 
 BATCH_LENGTHS = (49, 41, 33, 25)  # frames of phase 21's four streams: 144 pairs, three end early
@@ -1953,8 +2036,6 @@ def batch_phase(dev, scan_fps: float) -> dict:
     from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
     from hackathonopticalflow_tpu_torch.entry import entry
     from hackathonopticalflow_tpu_torch.flow import lk_grid
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
 
     params = LKParams(grid_step=30, compute_err=False)
     streams = batch_streams(dev)
@@ -1972,18 +2053,18 @@ def batch_phase(dev, scan_fps: float) -> dict:
                 .good.sum(1).tolist() for f in streams]
 
     want = own_scans(params)
-    lk_level.launches = patch_bilinear.launches = 0
-    full = run_batch(cfg())
-    torch.cuda.synchronize()
-    launches = lk_level.launches
+    full, cnt = counted(lambda: run_batch(cfg()))
+    launches = cnt.launched["lk_level"]
+    replayed = cnt.replayed.get("lk_level", 0)
     steps = full["steps"]
     counts = full["danger_counts"]
     lengths = [len(c) for c in counts]
     log(f"batch run_batch ({b} streams, {steps} steps, {full['total_frames']} pairs): lk_level launches "
-        f"{launches} ({3 * (steps + 1)} expected: 3 a step for all streams, a warm-up step included), "
-        f"patch_bilinear {patch_bilinear.launches}; pairs per stream {lengths} (ended streams masked); "
-        f"counts equal to each stream's own scan {counts == want}")
-    if (launches != 3 * (steps + 1) or steps != max(BATCH_LENGTHS) - 1 or counts != want
+        f"{launches} (the step graph's warm-up and capture), executions by its replays {replayed} "
+        f"({3 * (steps + 1)} expected: 3 a step for all streams, a warm-up step included), patch_bilinear "
+        f"{cnt.launched['patch_bilinear']}; pairs per stream {lengths} (ended streams masked); counts equal to "
+        f"each stream's own scan {counts == want}")
+    if (launches != 2 * 3 or replayed != 3 * (steps + 1) or steps != max(BATCH_LENGTHS) - 1 or counts != want
             or lengths != [n - 1 for n in BATCH_LENGTHS]):
         raise SystemExit("the batch runner disagrees with the streams' own scans")
 
@@ -2008,14 +2089,15 @@ def batch_phase(dev, scan_fps: float) -> dict:
 
     exact = LKParams()
     want_exact = own_scans(exact, BATCH_EXACT_FRAMES)
-    lk_level.launches = patch_bilinear.launches = 0
-    ex = run_batch(cfg(lk=exact, max_frames=BATCH_EXACT_FRAMES))
-    torch.cuda.synchronize()
-    ex_launches = (lk_level.launches, patch_bilinear.launches)
-    log(f"batch run_batch at LKParams() ({ex['steps']} steps): lk_level launches {ex_launches[0]}, "
-        f"patch_bilinear {ex_launches[1]} (3 and 4 a step, a warm-up step included); counts equal to each "
+    ex, ex_runs = counted(lambda: run_batch(cfg(lk=exact, max_frames=BATCH_EXACT_FRAMES)))
+    ex_launches = (ex_runs.launched["lk_level"], ex_runs.launched["patch_bilinear"])
+    ex_replayed = (ex_runs.replayed.get("lk_level", 0), ex_runs.replayed.get("patch_bilinear", 0))
+    log(f"batch run_batch at LKParams() ({ex['steps']} steps): launches (warm-up and capture) lk_level "
+        f"{ex_launches[0]}, patch_bilinear {ex_launches[1]}; executions by graph replays lk_level {ex_replayed[0]}, "
+        f"patch_bilinear {ex_replayed[1]} (3 and 4 a step, a warm-up step included); counts equal to each "
         f"stream's own exact scan {ex['danger_counts'] == want_exact}")
-    if ex_launches != (3 * (ex["steps"] + 1), 4 * (ex["steps"] + 1)) or ex["danger_counts"] != want_exact:
+    if (ex_replayed != (3 * (ex["steps"] + 1), 4 * (ex["steps"] + 1)) or ex_launches != (6, 8)
+            or ex["danger_counts"] != want_exact):
         raise SystemExit("the batch runner on the exact path disagrees")
 
     fps = max(run_batch(cfg())["aggregate_fps"] for _ in range(3))
@@ -2043,8 +2125,11 @@ def batch_phase(dev, scan_fps: float) -> dict:
     kernels = batched_kernel_phase(dev, streams)
     kernels["lk_level"]["launches"] = launches
     kernels["lk_level"]["launches_by_path"] = {"batch_runner": launches, "batch_runner exact": ex_launches[0]}
+    kernels["lk_level"]["executions_by_path"] = {"batch_runner": cnt.ran["lk_level"],
+                                                 "batch_runner exact": ex_runs.ran["lk_level"]}
     kernels["patch_bilinear"]["launches"] = ex_launches[1]
     kernels["patch_bilinear"]["launches_by_path"] = {"batch_runner exact": ex_launches[1]}
+    kernels["patch_bilinear"]["executions_by_path"] = {"batch_runner exact": ex_runs.ran["patch_bilinear"]}
 
     step, args = entry(device=dev)
     out = step(*args)
@@ -2056,7 +2141,7 @@ def batch_phase(dev, scan_fps: float) -> dict:
     return {
         "kernels": kernels,
         "batch_counts": counts,
-        "batch_launches": (launches, ex_launches),
+        "batch_launches": (cnt, ex_runs),
         "batch_pairs_per_s": fps,
         "batch_staged_pairs_per_s": staged_fps,
         "batch_all_alive_pairs_per_s": alive_fps,
@@ -2064,6 +2149,130 @@ def batch_phase(dev, scan_fps: float) -> dict:
         "batch_launches_per_step": calls / per,
         "batch_syncs_per_step": {k: v / per for k, v in syncs.items()},
     }
+
+
+GRAPH_TURNS = 1  # phase 24: rounds of eager, graphed, graphed, eager timings
+
+
+def _same(a, b) -> bool:
+    """Whether two results are identical: tensors by torch.equal, arrays
+    by np.array_equal, containers element by element."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and bool(torch.equal(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def graph_phase(dev, clip, dense_clip) -> dict:
+    """Phase 24: every captured step (utils/graphs.py) against its eager
+    form. For each path (the sparse scan; the pathfinder app's
+    run_batched, one graph a chunk, and its per-pair compute_frame; the
+    batch runner's step at B = 4; the dense scan in every coefficient
+    mode; farneback_flow per pair in "image" and "hybrid"; the dense
+    viewer's per-pair flows; the tracker scan, its two graphs; the
+    tracker app; collect_tracks): the graphed run identical (torch.equal)
+    to the eager run (chip_smoke.eager: every step's __wrapped__) over the
+    whole clip, then again with every graphed call (input copies, replay,
+    output copies) under torch.cuda.set_sync_debug_mode("error"); the
+    graph pool's reserved bytes after the path's captures; both forms'
+    fps timed in turns (eager, graphed, graphed, eager, GRAPH_TURNS
+    rounds; the best of each); the graphed form's host launches (kernels
+    and graphs) and syncs a pair or step (torch.profiler; the eager
+    form's: profile_torch_scan.py --eager)."""
+    from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch
+    from hackathonopticalflow_tpu_torch.apps.dense_viewer import DenseViewerApp, DenseViewerConfig
+    from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
+    from hackathonopticalflow_tpu_torch.apps.tracker_app import TrackerApp, TrackerAppConfig
+    from hackathonopticalflow_tpu_torch.core import FarnebackParams, LKParams, TrackerParams, measurement_grid
+    from hackathonopticalflow_tpu_torch.flow import dense, lk_grid, tracker
+    from hackathonopticalflow_tpu_torch.nav import odometry as odo
+    from hackathonopticalflow_tpu_torch.utils import graphs
+
+    params = LKParams(grid_step=30, compute_err=False)
+    tparams = TrackerParams()
+    pts = torch.from_numpy(measurement_grid(H, W, params.grid_step)).to(dev)
+    pairs = clip.shape[0] - 1
+    frames = clip.cpu().numpy()
+    bgr = ClipReader(frames).bgr
+    dense_pairs = dense_clip.shape[0] - 1
+    dense_frames = dense_clip.cpu().numpy()
+    dense_bgr = ClipReader(dense_frames[: DENSE_VIEWER_PAIRS + 1]).bgr
+    streams = batch_streams(dev)
+    stream_bgr = {f"stream{i}": ClipReader(f).bgr for i, f in enumerate(streams)}
+    s0 = tracker.track_step(tracker.init_tracker(tparams, dev), clip[0], clip[0], tparams, device=dev)
+
+    pf = PathfinderApp(PathfinderConfig(video="synthetic zoom clip", lk=params, max_frames=pairs, device=str(dev)),
+                       open_reader=lambda path: ClipReader(bgr))
+    viewer = DenseViewerApp(DenseViewerConfig(video="synthetic zoom clip", max_frames=DENSE_VIEWER_PAIRS,
+                                              device=str(dev)), open_reader=lambda path: ClipReader(dense_bgr))
+    track_app = TrackerApp(TrackerAppConfig(video="synthetic zoom clip", params=tparams, max_frames=pairs,
+                                            device=str(dev)), open_reader=lambda path: ClipReader(bgr[:pairs]))
+    batch_cfg = BatchRunnerConfig(videos=list(stream_bgr), lk=params, device=str(dev),
+                                  open_reader=lambda path: ClipReader(stream_bgr[path]))
+
+    def pair_loop(fn, n):
+        return lambda: [fn(t) for t in range(1, n + 1)]
+
+    paths = {
+        "sparse scan": (pairs, lambda: lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev), ()),
+        "pathfinder run_batched": (pairs, lambda: pf.run_batched(chunk=APP_CHUNK)["danger_counts"], (pf,)),
+        "pathfinder compute_frame": (pairs, pair_loop(lambda t: pf.compute_frame(frames[t - 1], frames[t]), pairs),
+                                     ()),
+        "batch runner (4 streams)": (max(BATCH_LENGTHS) - 1, lambda: run_batch(batch_cfg)["danger_counts"], ()),
+        **{f"dense scan {mode}": (dense_pairs, lambda mode=mode: dense.farneback_flow_video(
+            dense_clip, FarnebackParams(warp_mode=mode), device=dev), ())
+           for mode in ("exact", "packed", "pallas", "pallas_bf16")},
+        **{f"dense pair {mode}": (dense_pairs, pair_loop(lambda t, mode=mode: dense.farneback_flow(
+            dense_clip[t - 1], dense_clip[t], FarnebackParams(warp_mode=mode), device=dev), dense_pairs), ())
+           for mode in ("image", "hybrid")},
+        "dense viewer compute_frame": (DENSE_VIEWER_PAIRS, pair_loop(
+            lambda t: viewer.compute_frame(dense_frames[t - 1], dense_frames[t]), DENSE_VIEWER_PAIRS), ()),
+        "tracker scan": (pairs, lambda: tracker.track_video(clip, tparams, s0, device=dev), ()),
+        "tracker app (pose on)": (pairs, lambda: {k: v for k, v in track_app.run(headless=True).items()
+                                                  if k in ("final_heads", "poses", "final_tracks")}, ()),
+        "collect_tracks": (pairs + 1, lambda: tuple(odo.collect_tracks(clip, tparams, device=dev)), ()),
+    }
+    out = {}
+    for name, (units, run, objs) in paths.items():
+        t0 = time.perf_counter()
+        graphs.clear_caches()
+        torch.cuda.empty_cache()
+        with eager(*objs):
+            want = run()
+        got = run()  # captures
+        torch.cuda.synchronize()
+        pool = graphs.pool_bytes(dev)
+        with strict_replays():
+            again = run()
+            torch.cuda.synchronize()
+        same = _same(got, want) and _same(again, want)
+        best = {"eager": float("inf"), "graphed": float("inf")}
+        for _ in range(GRAPH_TURNS):
+            for form in ("eager", "graphed", "graphed", "eager"):
+                with eager(*objs) if form == "eager" else contextlib.nullcontext():
+                    best[form] = min(best[form], host_seconds(run))
+        launches, syncs = api_calls(run)
+        rec = {
+            "identical": same,
+            "pool_bytes": pool,
+            "fps": {form: units / t for form, t in best.items()},
+            "host_launches_per_unit": launches / units,
+            "syncs_per_unit": sum(syncs.values()) / units,
+        }
+        out[name] = rec
+        log(f"graphs {name} ({units} pairs or steps): replay identical to eager {same} (every replay under "
+            f"sync debug mode 'error'); fps graphed {rec['fps']['graphed']:.2f}, eager {rec['fps']['eager']:.2f} "
+            f"({rec['fps']['graphed'] / rec['fps']['eager']:.3f}x; in turns, best of {2 * GRAPH_TURNS}); graphed "
+            f"host launches {rec['host_launches_per_unit']:.2f} and syncs {rec['syncs_per_unit']:.2f} a pair or "
+            f"step; graph pool {pool / 2**20:.1f} MiB; {time.perf_counter() - t0:.1f} s")
+        if not same:
+            raise SystemExit(f"graphs: {name} replayed disagrees with its eager form")
+    return {"graphs": out}
 
 
 def ba_window_state(dev):
@@ -2096,21 +2305,38 @@ TOL_TILE_EPE_PX = 1e-3  # tiled against single-rank Farneback over the core rows
 SHARED = "ranks sharing one GPU: times measure overhead, not scaling"
 
 
-def _launch_counts() -> dict:
+def _wrapper_counts() -> dict:
+    """The kernels' wrapper counts (eager launches, and launches recorded
+    into a graph)."""
+    from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
 
     return {"lk_level": lk_level.launches, "warp_bilinear": warp_bilinear.launches,
-            "patch_bilinear": patch_bilinear.launches}
+            "patch_bilinear": patch_bilinear.launches, "gather_rects": gather_rects.launches}
+
+
+def _launch_counts() -> dict:
+    """The kernels' executions on the device since _zero_launch_counts():
+    the wrappers' counts less the launches that captures recorded, plus
+    the launches that graph replays ran."""
+    from hackathonopticalflow_tpu_torch.utils import graphs
+
+    stats = graphs.launch_stats()
+    return {k: v - stats["captured"].get(k, 0) + stats["replayed"].get(k, 0) for k, v in _wrapper_counts().items()}
 
 
 def _zero_launch_counts() -> None:
+    """Every kernel's wrapper count, and the graphs' counts, to 0."""
+    from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
+    from hackathonopticalflow_tpu_torch.utils import graphs
 
-    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = 0
+    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = gather_rects.launches = 0
+    graphs.reset_stats()
 
 
 def _sync(dev) -> None:
@@ -2157,7 +2383,7 @@ def mesh_rank(dev, inp: dict) -> dict:
     out = {"seconds": {}, "launches": {}, "plain equal": {}}
 
     def plain(fn):
-        with mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference), \
+        with eager(), mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference), \
                 mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
                 mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
             return fn()
@@ -2528,37 +2754,65 @@ def main() -> int:
     variants = {name: kernel_variants(name, path) for name, path in zip(names, paths)
                 if name in ("lk_level", "patch_bilinear")}
 
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     clip = make_clip(dev, H, W, N_FRAMES)
     log(f"1080p clip: {tuple(clip.shape)} uint8, zoom {ZOOM}/frame")
-    sparse = sparse_phases(dev, clip)
+    sparse = phase(sparse_phases, dev, clip)
     dense_clip = make_clip(dev, DENSE_H, DENSE_W, DENSE_FRAMES, DENSE_CELL)
-    dense = dense_phases(dev, dense_clip)
-    track = tracker_phases(dev, clip)
-    new_lk = new_lk_phases(dev, clip)
-    exact_pb = exact_patch_phase(dev, clip)
-    gather = gather_rects_phase(dev, clip)
-    scans = new_scan_phases(dev, clip)
-    app = app_phase(dev, clip, sparse["scan_fps"])
-    ego = ego_phase(dev, clip, track.pop("history"))
-    track_app = tracker_app_phase(dev, clip, track["tracker_fps"])
-    slab = slab_phase(dev, dense_clip)
-    modes = dense_modes_phase(dev, dense_clip)
-    viewer = dense_viewer_phase(dev, dense_clip, modes["fps"])
-    batch = batch_phase(dev, sparse["scan_fps"])
-    mesh = parallel_phases(dev, batch.pop("batch_counts"), batch["batch_pairs_per_s"])
+    dense = phase(dense_phases, dev, dense_clip)
+    track = phase(tracker_phases, dev, clip)
+    new_lk = phase(new_lk_phases, dev, clip)
+    exact_pb = phase(exact_patch_phase, dev, clip)
+    gather = phase(gather_rects_phase, dev, clip)
+    scans = phase(new_scan_phases, dev, clip)
+    app = phase(app_phase, dev, clip, sparse["scan_fps"])
+    ego = phase(ego_phase, dev, clip, track.pop("history"))
+    track_app = phase(tracker_app_phase, dev, clip, track["tracker_fps"])
+    slab = phase(slab_phase, dev, dense_clip)
+    modes = phase(dense_modes_phase, dev, dense_clip)
+    viewer = phase(dense_viewer_phase, dev, dense_clip, modes["fps"])
+    batch = phase(batch_phase, dev, sparse["scan_fps"])
+    mesh = phase(parallel_phases, dev, batch.pop("batch_counts"), batch["batch_pairs_per_s"])
+    captured = phase(graph_phase, dev, clip, dense_clip)
 
     foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "hackathonopticalflow_tpu"))
     if foreign:
         raise SystemExit(f"the port loaded jax or the JAX package: {foreign[:5]}")
 
+    # launches_by_path: each path's counted run (its graphs captured in
+    # it), as the kernels' wrappers count; executions_by_path: the kernels'
+    # runs on the device there, graph replays included (phases 22-23: the
+    # ranks' runs after a warm-up run, executions only)
+    def add(rec: dict, kernel: str, path: str, runs: Runs) -> None:
+        rec["launches_by_path"][path] = runs.launched[kernel]
+        rec["executions_by_path"][path] = runs.ran[kernel]
+
+    def total(rec: dict) -> None:
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        rec["executions"] = sum(rec["executions_by_path"].values())
+
+    odo_runs = ego.pop("odometry_launches")
+    track_app_runs = track_app.pop("tracker_app_launches")
+    viewer_runs = viewer.pop("dense_viewer_launches")
+    batch_runs, batch_exact_runs = batch.pop("batch_launches")
     lk = sparse.pop("kernel")
     lk_track = track.pop("lk_level")
     lk["launches_by_path"]["tracker"] = lk_track.pop("launches")
+    lk["executions_by_path"]["tracker"] = lk_track.pop("executions")
     lk["launches_by_path"].update(scans.pop("lk_level_launches"))
+    lk["executions_by_path"].update(scans.pop("lk_level_executions"))
     lk["launches_by_path"]["app"] = app.pop("app_launches")
-    (lk["launches_by_path"]["odometry"], odo_pb) = ego.pop("odometry_launches")
-    (lk["launches_by_path"]["tracker_app"], app_pb) = track_app.pop("tracker_app_launches")
-    lk["launches"] = sum(lk["launches_by_path"].values())
+    lk["executions_by_path"]["app"] = app.pop("app_executions")
+    for path, runs in (("odometry", odo_runs), ("tracker_app", track_app_runs), ("dense_viewer", viewer_runs),
+                       ("batch_runner", batch_runs), ("batch_runner exact", batch_exact_runs)):
+        add(lk, "lk_level", path, runs)
+    lk["executions_by_path"].update(mesh["by_path"]["lk_level"])
+    total(lk)
     lk["max_abs_err"] = max(lk["max_abs_err"], lk_track.pop("max_abs_err"), new_lk.pop("max_abs_err"))
     lk["replaces"] += ", hackathonopticalflow_tpu/ops/lk_pallas2.py:64"
     merge_records(lk, lk_track)
@@ -2566,35 +2820,37 @@ def main() -> int:
     lk["variants"] = variants["lk_level"]
     pb = track.pop("kernel")
     pb["launches_by_path"]["exact"] = scans.pop("patch_bilinear_launches")["exact"]
-    pb["launches_by_path"]["odometry"] = odo_pb
-    pb["launches_by_path"]["tracker_app"] = app_pb
-    pb["launches"] = sum(pb["launches_by_path"].values())
+    pb["executions_by_path"]["exact"] = scans.pop("patch_bilinear_executions")["exact"]
+    for path, runs in (("odometry", odo_runs), ("tracker_app", track_app_runs), ("dense_viewer", viewer_runs),
+                       ("batch_runner exact", batch_exact_runs)):
+        add(pb, "patch_bilinear", path, runs)
+    pb["executions_by_path"].update(mesh["by_path"]["patch_bilinear"])
+    total(pb)
     merge_records(pb, exact_pb)
     pb["variants"] = variants["patch_bilinear"]
-    (warp_viewer, lk["launches_by_path"]["dense_viewer"], pb["launches_by_path"]["dense_viewer"]) = viewer.pop(
-        "dense_viewer_launches")
     batch_kernels = batch.pop("kernels")
-    (lk["launches_by_path"]["batch_runner"], (lk["launches_by_path"]["batch_runner exact"],
-                                              pb["launches_by_path"]["batch_runner exact"])) = batch.pop(
-        "batch_launches")
-    lk["launches_by_path"].update(mesh["by_path"]["lk_level"])
-    pb["launches_by_path"].update(mesh["by_path"]["patch_bilinear"])
-    lk["launches"] = sum(lk["launches_by_path"].values())
-    pb["launches"] = sum(pb["launches_by_path"].values())
+    for rec in batch_kernels.values():
+        total(rec)
     warp = dense.pop("kernel")
-    warp["launches_by_path"].update({f"dense {m}": modes["launches"][m] for m in ("packed", "hybrid")})
-    warp["launches_by_path"]["dense_viewer"] = warp_viewer
-    warp["launches_by_path"].update(mesh["by_path"]["warp gather"])
-    warp["launches"] = sum(warp["launches_by_path"].values())
+    for m in ("packed", "hybrid"):
+        warp["launches_by_path"][f"dense {m}"] = modes["launches"][m]
+        warp["executions_by_path"][f"dense {m}"] = modes["executions"][m]
+    add(warp, "warp_bilinear", "dense_viewer", viewer_runs)
+    warp["executions_by_path"].update(mesh["by_path"]["warp gather"])
+    total(warp)
     for variant, mode in (("f32", "pallas"), ("bf16", "pallas_bf16")):
         slab[variant]["launches_by_path"] = {f"dense {mode}": modes["launches"][mode]}
-    slab["f32"]["launches_by_path"].update(mesh["by_path"]["warp slab f32"])
+        slab[variant]["executions_by_path"] = {f"dense {mode}": modes["executions"][mode]}
+    slab["f32"]["executions_by_path"].update(mesh["by_path"]["warp slab f32"])
     for variant in ("f32", "bf16"):
-        slab[variant]["launches"] = sum(slab[variant]["launches_by_path"].values())
+        total(slab[variant])
+    gather["executions_by_path"] = dict(gather["launches_by_path"])
+    total(gather)
     record = {"kernels": [lk, warp, slab["f32"], slab["bf16"], pb, gather, batch_kernels["lk_level"],
                           batch_kernels["patch_bilinear"]], **sparse, **dense, **track, **scans,
               **app, **ego, **track_app, "dense_modes_fps": modes["fps"],
-              "dense_modes_median_epe_px": modes["median_epe_px"], **viewer, **batch, **mesh["record"]}
+              "dense_modes_median_epe_px": modes["median_epe_px"], **viewer, **batch, **mesh["record"],
+              **captured}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))

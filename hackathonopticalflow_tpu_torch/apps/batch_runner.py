@@ -39,12 +39,13 @@ import torch.distributed as dist
 
 from ..core import FilterParams, LKParams, NormalizeParams, measurement_grid
 from ..flow.device import resolve_device
-from ..flow.lk_grid import lk_grid_flow_prepared, lk_grid_flow_video
+from ..flow.lk_grid import lk_grid_flow_prepared, lk_grid_flow_video, search_frame
 from ..io.prefetch import FramePrefetcher
 from ..io.video import VideoReader
 from ..ops.lk import prepare_frame
 from ..parallel.mesh import init_multihost, rank_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.graphs import graphed
 from ..utils.logging import get_logger
 
 log = get_logger("apps.batch_runner")
@@ -119,10 +120,12 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
 
     Frames cross through two pinned (B, H, W) buffers that alternate
     between steps; the previous step's prepared pyramid stays on the
-    device. Each step's counts come back with one non-blocking copy behind
-    an event and are read one step late, while the next step runs. The
-    first step is run once before the clock starts (kernel build, index
-    caches).
+    device. A step (`_batch_step`: the frames' pyramid, the batched flow,
+    the counts) runs as one captured graph on the GPU, at the fixed B:
+    ended streams stay in the batch, masked on the host. Each step's
+    counts come back with one non-blocking copy behind an event and are
+    read one step late, while the next step runs. The first step is run
+    once before the clock starts (kernel build, index caches, capture).
 
     With n_devices > 1 every rank of the world calls it: rank r < n runs
     its block of streams this way on its own device
@@ -234,13 +237,13 @@ def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoi
         frames_buf = [torch.empty((b, h, w), dtype=torch.uint8, pin_memory=cuda) for _ in range(2)]
         counts_buf = [torch.empty((b,), dtype=torch.int32, pin_memory=cuda) for _ in range(2)]
         frames_buf[0].numpy()[:] = first
-        prev_prep = prepare_frame(frames_buf[0].to(dev, non_blocking=True), cfg.lk)
+        prev_planes = prepare_frame(frames_buf[0].to(dev, non_blocking=True), cfg.lk).img_p
 
-        def step(prev_prep, cur_prep):
-            return lk_grid_flow_prepared(prev_prep, cur_prep, pts, cfg.lk, cfg.norm, cfg.filt)
+        def step(prev_planes, frames):
+            return _batch_step(prev_planes, frames, pts, cfg.lk, cfg.norm, cfg.filt)
 
-        if cuda:  # build and cache outside the clock
-            step(prev_prep, prev_prep)
+        if cuda:  # build, cache and capture outside the clock
+            step(prev_planes, frames_buf[0])
             torch.cuda.synchronize(dev)
 
         danger_counts: list[list[int]] = [[] for _ in range(b)]
@@ -287,9 +290,8 @@ def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoi
                     cur[i] = nxt
             if not alive.any():
                 break
-            cur_prep = prepare_frame(frames_buf[nslot].to(dev, non_blocking=True), cfg.lk)
-            res = step(prev_prep, cur_prep)
-            counts_buf[nslot].copy_(res.good.sum(-1, dtype=torch.int32), non_blocking=True)
+            counts, cur_planes = step(prev_planes, frames_buf[nslot])
+            counts_buf[nslot].copy_(counts, non_blocking=True)
             ready = None
             if cuda:
                 ready = torch.cuda.Event()
@@ -298,7 +300,7 @@ def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoi
             last, pending = pending, (nslot, ready, alive.copy(), n_steps)
             if last is not None:
                 consume(last)
-            prev_prep, slot = cur_prep, nslot
+            prev_planes, slot = cur_planes, nslot
         if pending is not None:
             consume(pending)
         wall = time.time() - t0
@@ -308,6 +310,19 @@ def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoi
             p.close()
     return {"danger_counts": danger_counts, "n_steps0": n_steps0, "n_steps": n_steps, "start": start,
             "wall_s": wall, "last_prev": last_prev}
+
+
+@graphed
+def _batch_step(prev_planes: tuple, frames: torch.Tensor, pts: torch.Tensor, lk: LKParams, norm: NormalizeParams,
+                filt: FilterParams):
+    """One step of run_batch for its B streams: (each stream's danger
+    count (B,) int32, the frames' padded image levels for the next step,
+    all that the step reads of the previous frames: flow/lk_grid.py::
+    search_frame). frames (B, H, W) uint8 cross from their pinned buffer
+    straight into the captured graph's input on the GPU."""
+    cur_prep = prepare_frame(frames.to(pts.device), lk)
+    res = lk_grid_flow_prepared(search_frame(prev_planes), cur_prep, pts, lk, norm, filt)
+    return res.good.sum(-1, dtype=torch.int32), cur_prep.img_p
 
 
 def run_batch_staged(cfg: BatchRunnerConfig, reps: int = 3) -> dict:

@@ -46,6 +46,7 @@ from ..flow.lk_grid import (
 from ..io.prefetch import FramePrefetcher, to_gray, upload
 from ..io.video import HAVE_CV2, VideoReader
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.graphs import graphed
 from ..utils.logging import get_logger
 from ..viz.draw import add_layers, put_text
 from ..viz.layers import _host, draw_grid, draw_grid_vectors, draw_sparse_lamps
@@ -93,29 +94,35 @@ class PathfinderApp:
         h, w = self.reader.height, self.reader.width
         self.pts = measurement_grid(h, w, cfg.step)
         self._pts_dev = torch.from_numpy(self.pts).to(self.device)
+        # one captured graph per chunk size on the GPU, as the JAX app jits
+        # one scan per chunk
+        self._chunk = graphed(self._chunk_fn)
         self._warm: set = set()
         log.info("Video %s (%dx%d) on %s", cfg.video, w, h, self.device)
 
-    def _chunk_fn(self, frames_dev: torch.Tensor) -> torch.Tensor:
-        """One chunk's flow, packed into one (pairs, 10 N) tensor."""
+    def _chunk_fn(self, frames: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+        """One chunk's flow, packed into one (pairs, 10 N) tensor; frames
+        (pairs + 1, H, W) uint8, pts the (N, 2) grid on the device. The
+        GPU runs it as a captured graph (`self._chunk`), frames copied
+        from their pinned buffer straight into its input."""
         cfg = self.cfg
-        res = lk_grid_flow_video(frames_dev, self._pts_dev, cfg.lk, cfg.norm, cfg.filt, device=self.device)
+        res = lk_grid_flow_video(frames, pts, cfg.lk, cfg.norm, cfg.filt, device=self.device)
         return pack_grid_result(res)
 
     def warmup(self, chunk: int) -> None:
-        """Builds the kernels and warms the device allocator for chunks of
-        `chunk` pairs; run_batched calls it before its clock starts. A
-        no-op on the CPU and after the first call for a chunk size."""
+        """Builds the kernels and captures the graph of chunks of `chunk`
+        pairs; run_batched calls it before its clock starts. A no-op on
+        the CPU and after the first call for a chunk size."""
         if self.device.type != "cuda" or chunk in self._warm:
             return
-        self._chunk_fn(torch.zeros((chunk + 1, self.reader.height, self.reader.width),
-                                   dtype=torch.uint8, device=self.device))
+        self._chunk(torch.zeros((chunk + 1, self.reader.height, self.reader.width),
+                                dtype=torch.uint8, device=self.device), self._pts_dev)
         torch.cuda.synchronize(self.device)
         self._warm.add(chunk)
 
     def compute_frame(self, prev_gray: np.ndarray, gray: np.ndarray) -> GridFlowResult:
-        """Device-side computation for one frame pair; returns without
-        waiting for the device."""
+        """Device-side computation for one frame pair, one captured graph on
+        the GPU (lk_grid_flow's); returns without waiting for the device."""
         cfg = self.cfg
         return lk_grid_flow(
             upload(prev_gray, self.device), upload(gray, self.device), self._pts_dev,
@@ -330,7 +337,7 @@ class PathfinderApp:
                 buf[i] = g
             buf[len(grays):] = grays[-1]  # pad the tail chunk
             t0 = time.time()
-            packed = self._chunk_fn(frames_buf[slot].to(dev, non_blocking=True))
+            packed = self._chunk(frames_buf[slot], self._pts_dev)
             results_buf[slot].copy_(packed, non_blocking=True)
             ready = None
             if cuda:

@@ -26,7 +26,7 @@ import torch
 
 from ..core import TrackerParams
 from ..flow.device import resolve_device
-from ..flow.tracker import _heads, init_tracker, track_step_prepared
+from ..flow.tracker import _heads, init_tracker, track_frame
 from ..io.prefetch import to_gray, upload
 from ..io.video import VideoReader
 from ..nav.camera import Pinhole
@@ -89,11 +89,12 @@ class TrackerApp:
         self.reader = open_reader(cfg.video)
         self.cam = Pinhole.from_fov(self.reader.width, self.reader.height, cfg.h_fov_deg)
 
-    def _pose(self, prev_heads: torch.Tensor, prev_alive: torch.Tensor, state) -> np.ndarray:
+    def _pose(self, prev_heads: torch.Tensor, prev_alive: torch.Tensor, heads: torch.Tensor,
+              alive: torch.Tensor) -> np.ndarray:
         """[R (9), t (3), inliers, tracks alive at both ends] of the step
-        from prev_heads to the state's heads, in one device-to-host copy."""
-        valid = state.alive & prev_alive
-        pose = estimate_relative_pose(self.cam.normalize(prev_heads), self.cam.normalize(_heads(state)), valid)
+        from prev_heads to heads, in one device-to-host copy."""
+        valid = alive & prev_alive
+        pose = estimate_relative_pose(self.cam.normalize(prev_heads), self.cam.normalize(heads), valid)
         counts = torch.stack([pose.n_inliers, valid.sum()]).to(torch.float32)
         return torch.cat([pose.R.reshape(9), pose.t, counts]).cpu().numpy()
 
@@ -132,25 +133,28 @@ class TrackerApp:
         done_this_run = 0
         since_save = 0
         t0 = time.time()
-        # the previous frame's prepared pyramid stays on the device
+        # the previous frame's prepared pyramid stays on the device; a step
+        # (track_frame: the frame's pyramid, tracking, detection) is one
+        # captured graph on the GPU
         prev_prep = None
         if prev_gray is not None:
             prev_prep = prepare_frame(upload(prev_gray, self.device).to(torch.float32), params.lk)
+        heads = _heads(state)
         while cfg.max_frames is None or n < cfg.max_frames:
             frame = reader.read()
             if frame is None:
                 break
             gray = to_gray(frame)
-            img = upload(gray, self.device).to(torch.float32)
-            cur_prep = prepare_frame(img, params.lk)
+            img = upload(gray, self.device)
             if prev_prep is None:
-                prev_prep = cur_prep  # the first step seeds detections on (f0, f0)
-            prev_heads, prev_alive = _heads(state), state.alive
-            state = track_step_prepared(state, prev_prep, cur_prep, img, params)
-            prev_prep, prev_gray = cur_prep, gray
+                # the first step seeds detections on (f0, f0)
+                prev_prep = prepare_frame(img.to(torch.float32), params.lk)
+            prev_heads, prev_alive = heads, state.alive
+            state, prev_prep, heads = track_frame(state, prev_prep, img, params)
+            prev_gray = gray
 
             if cfg.estimate_pose and n > 0:
-                row = self._pose(prev_heads, prev_alive, state)
+                row = self._pose(prev_heads, prev_alive, heads, state.alive)
                 if row[13] >= 8:
                     poses.append({"frame": n, "R": row[:9].reshape(3, 3), "t": row[9:12], "inliers": int(row[12])})
 

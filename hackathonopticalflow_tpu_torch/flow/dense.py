@@ -7,6 +7,7 @@ import torch
 
 from ..core import FarnebackParams
 from ..ops.farneback import COEF_MODES, farneback, farneback_prepared, prepare_frame, resolve_mode
+from ..utils.graphs import graphed
 from .device import resolve_device
 
 
@@ -21,7 +22,10 @@ def farneback_flow_video(
     polynomial pyramid is built once and carried to the next pair, so the
     result equals per-pair farneback() exactly. The coefficient warp
     modes only: "image" and "hybrid" re-expand each frame inside the
-    iteration and raise ValueError, as the JAX scan refuses them."""
+    iteration and raise ValueError, as the JAX scan refuses them. Each
+    step (`_video_step`) runs as one captured graph on the GPU, the
+    carried pyramid copied in as its input, as the JAX scan runs its
+    body."""
     params = resolve_mode(params)
     if params.warp_mode not in COEF_MODES:
         raise ValueError(f"farneback_flow_video runs the coefficient warp modes {COEF_MODES}, "
@@ -31,10 +35,17 @@ def farneback_flow_video(
     prev = prepare_frame(frames[0], params)
     flows = []
     for t in range(1, frames.shape[0]):
-        cur = prepare_frame(frames[t], params)
-        flows.append(farneback_prepared(prev, cur, params))
-        prev = cur
+        flow, prev = _video_step(prev, frames[t], params)
+        flows.append(flow)
     return torch.stack(flows)
+
+
+@graphed
+def _video_step(prev: tuple, frame: torch.Tensor, params: FarnebackParams) -> tuple[torch.Tensor, tuple]:
+    """One step of farneback_flow_video: (the pair's flow, the frame's
+    pyramid for the next step)."""
+    cur = prepare_frame(frame, params)
+    return farneback_prepared(prev, cur, params), cur
 
 
 def farneback_flow(
@@ -44,8 +55,15 @@ def farneback_flow(
     device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """(..., H, W) grayscale pair -> (..., H, W, 2) dense flow in any warp
-    mode, on the GPU unless device="cpu". Leading batch axes (pairs of
-    several streams, say) run as one batch; each row equals the
-    single-pair result."""
+    mode, on the GPU unless device="cpu", as one captured graph a call
+    (`_pair_flow`). Leading batch axes (pairs of several streams, say) run
+    as one batch; each row equals the single-pair result."""
     device = resolve_device(device)
-    return farneback(prev_gray.to(device), gray.to(device), params)
+    return _pair_flow(prev_gray.to(device, non_blocking=True), gray.to(device, non_blocking=True),
+                      resolve_mode(params))
+
+
+@graphed
+def _pair_flow(prev_gray: torch.Tensor, gray: torch.Tensor, params: FarnebackParams) -> torch.Tensor:
+    """farneback_flow's device work."""
+    return farneback(prev_gray, gray, params)

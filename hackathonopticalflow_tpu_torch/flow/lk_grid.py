@@ -25,6 +25,7 @@ from ..core import FilterParams, LKParams, NormalizeParams
 from ..nav.filter import robust_mask
 from ..nav.normalize import radial_normalize
 from ..ops.lk import PreparedFrame, _frame_pad, prepare_frame, pyr_lk, pyr_lk_prepared
+from ..utils.graphs import graphed
 from .device import resolve_device
 
 
@@ -134,11 +135,18 @@ def lk_grid_flow(
     """prev_gray/gray: (H, W) grayscale in [0, 255] (uint8 welcome: they
     move to `device` as they are and are cast there), or (B, H, W), one
     frame per stream; pts: (N, 2), shared by the streams. Fields are (N,
-    ...) or (B, N, ...). Runs on the GPU unless device="cpu"."""
+    ...) or (B, N, ...). Runs on the GPU unless device="cpu", as one
+    captured graph a call (`_pair_flow`)."""
     device = resolve_device(device)
-    prev_gray = prev_gray.to(device).to(torch.float32)
-    gray = gray.to(device).to(torch.float32)
-    pts = pts.to(device=device, dtype=torch.float32)
+    return _pair_flow(prev_gray.to(device, non_blocking=True), gray.to(device, non_blocking=True),
+                      pts.to(device=device, dtype=torch.float32), lk, norm, filt)
+
+
+@graphed
+def _pair_flow(prev_gray, gray, pts, lk, norm, filt) -> GridFlowResult:
+    """lk_grid_flow's device work."""
+    prev_gray = prev_gray.to(torch.float32)
+    gray = gray.to(torch.float32)
     h, w = gray.shape[-2:]
     # backward flow: track grid points from the current frame into the
     # previous one
@@ -158,17 +166,38 @@ def lk_grid_flow_video(
     over the T-1 steps. Frames move to `device` (the GPU unless
     device="cpu") as uint8 and are cast there; each frame's prepared
     pyramid is built once and carried to the next step as the previous
-    frame."""
+    frame. Each step (`_video_step`) runs as one captured graph on the
+    GPU, the carried levels copied in as its input, as the JAX package's
+    scan runs its body."""
     device = resolve_device(device)
     frames = frames.to(device)
     pts = pts.to(device=device, dtype=torch.float32)
-    prev_prep = prepare_frame(frames[0], lk)
+    prev_planes = prepare_frame(frames[0], lk).img_p
     steps = []
     for t in range(1, frames.shape[0]):
-        cur_prep = prepare_frame(frames[t], lk)
-        steps.append(lk_grid_flow_prepared(prev_prep, cur_prep, pts, lk, norm, filt))
-        prev_prep = cur_prep
+        res, prev_planes = _video_step(prev_planes, frames[t], pts, lk, norm, filt)
+        steps.append(res)
     return GridFlowResult(*(torch.stack(f) for f in zip(*steps)))
+
+
+def search_frame(planes: tuple) -> PreparedFrame:
+    """The previous frame as the grid flow reads it: the backward flow
+    searches its padded image levels and takes its templates from the
+    current frame, so a clip step carries these levels alone (a third of
+    the pyramid's bytes)."""
+    return PreparedFrame(img_p=planes, dix_p=(), diy_p=())
+
+
+@graphed
+def _video_step(
+    prev_planes: tuple, frame: torch.Tensor, pts: torch.Tensor, lk, norm, filt
+) -> tuple[GridFlowResult, tuple]:
+    """One step of lk_grid_flow_video: the frame's pyramid and the flow of
+    the pair (result, the frame's padded image levels for the next
+    step)."""
+    cur_prep = prepare_frame(frame, lk)
+    res = lk_grid_flow_prepared(search_frame(prev_planes), cur_prep, pts, lk, norm, filt)
+    return res, cur_prep.img_p
 
 
 def lk_grid_flow_prepared(

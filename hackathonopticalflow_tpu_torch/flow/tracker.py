@@ -11,7 +11,9 @@ exclusion mask, SparseOF.py:60-73) into free slots.
 The state is a fixed-capacity table, as in the JAX package: (max_tracks,
 trajectory_len, 2) positions with per-track lengths and liveness; every
 slot is tracked every frame. frame_idx is a Python int, so the detection
-branch costs no read from the device.
+branch costs no read from the device. On the GPU a step runs as one of
+two captured graphs, with detection and without (`utils/graphs.py`; the
+JAX package's step takes the branch with lax.cond).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..core import TrackerParams
 from ..ops.features import Corners, good_features_to_track
 from ..ops.lk import PreparedFrame, prepare_frame, pyr_lk_prepared
+from ..utils.graphs import graphed
 from .device import resolve_device
 
 
@@ -112,8 +115,9 @@ def _spawn(state: TrackerState, corners: Corners) -> TrackerState:
     length = torch.cat([state.length, state.length.new_zeros(1)])
     alive = torch.cat([state.alive, state.alive.new_zeros(1)])
     traj[slot, 0] = corners.pts
-    length[slot] = 1
-    alive[slot] = True
+    # index_fill_ takes the value as a kernel argument: no host copy
+    length.index_fill_(0, slot, 1)
+    alive.index_fill_(0, slot, True)
     return state._replace(traj=traj[:t], length=length[:t], alive=alive[:t])
 
 
@@ -127,6 +131,16 @@ def track_step_prepared(
     """track_step over frames prepared with ops.lk.prepare_frame (the form
     track_video runs, so each frame is prepared once). gray: the current
     (H, W) float32 frame, for detection; all on one device."""
+    detect = state.frame_idx % params.detect_interval == 0
+    traj, length, alive = _step_graph(state.traj, state.length, state.alive, prev_prep, cur_prep, gray, params,
+                                      detect)
+    return TrackerState(traj, length, alive, state.frame_idx + 1)
+
+
+def _step(traj, length, alive, prev_prep, cur_prep, gray, params: TrackerParams, detect: bool):
+    """track_step_prepared on the state's tensors: (traj, length, alive)
+    after the step; `detect` says whether this frame detects."""
+    state = TrackerState(traj, length, alive, 0)
     h, w = gray.shape
     heads = _heads(state)
     p1 = pyr_lk_prepared(prev_prep, cur_prep, heads, params.lk).next_pts
@@ -134,10 +148,40 @@ def track_step_prepared(
     d = (heads - p0r).abs().amax(dim=-1)
     keep = state.alive & (d < params.fb_max_dist)
     state = _append(state, p1, keep)
-    if state.frame_idx % params.detect_interval == 0:
+    if detect:
         mask = _detect_mask(_heads(state), state.alive, h, w)
         state = _spawn(state, good_features_to_track(gray, params.features, mask=mask))
-    return state._replace(frame_idx=state.frame_idx + 1)
+    return state.traj, state.length, state.alive
+
+
+def _frame_step(traj, length, alive, prev_prep, frame, params: TrackerParams, detect: bool):
+    """track_frame on the state's tensors: (traj, length, alive, the
+    frame's pyramid, heads)."""
+    img = frame.to(traj.device).to(torch.float32)
+    cur_prep = prepare_frame(img, params.lk)
+    traj, length, alive = _step(traj, length, alive, prev_prep, cur_prep, img, params, detect)
+    return traj, length, alive, cur_prep, _heads(TrackerState(traj, length, alive, 0))
+
+
+_step_graph = graphed(_step)
+_frame_graph = graphed(_frame_step)
+
+
+def track_frame(
+    state: TrackerState,
+    prev_prep: PreparedFrame,
+    frame: torch.Tensor,
+    params: TrackerParams = TrackerParams(),
+) -> tuple[TrackerState, PreparedFrame, torch.Tensor]:
+    """One step on a new (H, W) frame (uint8 welcome), on the state's
+    device: prepares it, tracks from `prev_prep` and returns (the state,
+    the frame's prepared pyramid for the next step, the heads (T, 2) after
+    the step). It runs as one captured graph on the GPU."""
+    detect = state.frame_idx % params.detect_interval == 0
+    traj, length, alive, cur_prep, heads = _frame_graph(
+        state.traj, state.length, state.alive, prev_prep, frame, params, detect
+    )
+    return TrackerState(traj, length, alive, state.frame_idx + 1), cur_prep, heads
 
 
 def track_step(
@@ -176,11 +220,8 @@ def track_video(
     prev_prep = prepare_frame(frames[0].to(torch.float32), params.lk)
     heads, alive, length = [], [], []
     for t in range(1, frames.shape[0]):
-        img = frames[t].to(torch.float32)
-        cur_prep = prepare_frame(img, params.lk)
-        state = track_step_prepared(state, prev_prep, cur_prep, img, params)
-        heads.append(_heads(state))
+        state, prev_prep, h = track_frame(state, prev_prep, frames[t], params)
+        heads.append(h)
         alive.append(state.alive)
         length.append(state.length)
-        prev_prep = cur_prep
     return state, (torch.stack(heads), torch.stack(alive), torch.stack(length))

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,7 +57,7 @@ def _select(cxy: torch.Tensor, cand_ok: torch.Tensor, max_corners: int, min_d2: 
     last one taken that is valid and far from every corner taken so far.
     The set taken only grows, so a candidate the sequential pass rejected
     stays rejected, and the result is the same. No round reads a value on
-    the host."""
+    the host: the candidate is gathered by a one-element index tensor."""
     k = cxy.shape[0]
     order = torch.arange(k, device=cxy.device)
     sel = torch.zeros((max_corners, 2), dtype=torch.float32, device=cxy.device)
@@ -64,8 +65,8 @@ def _select(cxy: torch.Tensor, cand_ok: torch.Tensor, max_corners: int, min_d2: 
     avail = cand_ok
     for r in range(max_corners):
         has = avail.any()
-        i = avail.to(torch.int32).argmax()  # the first available candidate
-        p = cxy[i]
+        i = avail.to(torch.int32).argmax().reshape(1)  # the first available candidate
+        p = cxy.index_select(0, i)[0]
         sel[r] = torch.where(has, p, sel[r])
         valid[r] = has
         d2 = ((cxy - p) ** 2).sum(dim=-1)
@@ -99,6 +100,6 @@ def good_features_to_track(
     vals, idx = torch.sort(cand.reshape(-1), descending=True, stable=True)
     vals, idx = vals[:k], idx[:k]
     cxy = torch.stack([(idx % w).to(torch.float32), (idx // w).to(torch.float32)], dim=-1)
-    min_d2 = float(torch.tensor(params.min_distance**2, dtype=torch.float32))
+    min_d2 = float(np.float32(params.min_distance**2))
     sel, valid = _select(cxy, vals > 0, params.max_corners, min_d2)
     return Corners(pts=sel, valid=valid, count=valid.sum(dtype=torch.int32))

@@ -6,7 +6,7 @@ four-stream 1080p batch runner, on one CUDA GPU.
 Run from the repository root:
 
     python3 profile_torch_scan.py [--path sparse|dense|tracker|app|ego|batch] [--pairs 8] [--out PATH]
-        [--warp-mode auto|exact|packed|pallas|pallas_bf16|image|hybrid] [--gpu-geometry]
+        [--warp-mode auto|exact|packed|pallas|pallas_bf16|image|hybrid] [--gpu-geometry] [--eager]
 
 Drives `--pairs` pairs of chip_smoke.py's synthetic zoom clip:
 `lk_grid_flow_video` at the production params (--path sparse, the
@@ -24,12 +24,16 @@ windows on the GPU too) or the batch runner's `run_batch`
 at the production params on chip_smoke.py's four phase-21 streams cut to
 `--pairs` + 1 frames, read from host memory (--path batch; a step, 4
 pairs, per pair index; its counts include run_batch's warm-up step, so
-they are given per step of `--pairs` + 1). It prints:
+they are given per step of `--pairs` + 1). The steps run as the paths run
+them, each one captured CUDA graph replayed (utils/graphs.py); with
+--eager, as their eager form (chip_smoke.eager: every step's
+__wrapped__, one launch per op). It prints:
 - the GPU's name and power limit (nvidia-smi);
 - the scan's wall time without the profiler (best of 3) and the device
   time that torch.profiler records over one more scan, so the device's
   busy share is device time / wall time;
-- host API calls per pair (kernel launches, stream syncs, memcpys) and
+- host API calls per pair (kernel and graph launches, stream syncs,
+  memcpys) and
   the device's copies per pair by kind (pageable host-to-device copies
   each cost the host a sync);
 - device time by kind of kernel (lk_level, warp_bilinear,
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import importlib
 import json
 import subprocess
@@ -65,7 +70,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import APP_CHUNK, DENSE_CELL, DENSE_H, DENSE_W, H, W, ClipReader, cuda_ms, make_clip, scene_table
+from chip_smoke import APP_CHUNK, DENSE_CELL, DENSE_H, DENSE_W, H, W, ClipReader, cuda_ms, eager, make_clip, scene_table
 from hackathonopticalflow_tpu_torch.core import (
     FarnebackParams,
     FilterParams,
@@ -137,7 +142,7 @@ def sparse_setup(dev, pairs: int):
         )
         return out
 
-    return scan, stages, "1080p"
+    return scan, stages, "1080p", ()
 
 
 def dense_setup(dev, pairs: int, warp_mode: str = "auto"):
@@ -177,7 +182,7 @@ def dense_setup(dev, pairs: int, warp_mode: str = "auto"):
         out["farneback_prepared"] = cuda_ms(lambda: fb.farneback_prepared(rs0, rs1, params), 10)
         return out
 
-    return scan, stages, "720p"
+    return scan, stages, "720p", ()
 
 
 def tracker_setup(dev, pairs: int):
@@ -211,7 +216,7 @@ def tracker_setup(dev, pairs: int):
         )
         return out
 
-    return scan, stages, "1080p"
+    return scan, stages, "1080p", ()
 
 
 def app_setup(dev, pairs: int):
@@ -237,10 +242,10 @@ def app_setup(dev, pairs: int):
             to_gray(bgr[1])
         out = {"to_gray (host)": (time.perf_counter() - t0) * 100}
         chunk_dev = torch.from_numpy(frames[: chunk + 1]).to(dev)
-        out[f"chunk of {chunk} pairs"] = cuda_ms(lambda: app._chunk_fn(chunk_dev), 3)
+        out[f"chunk of {chunk} pairs"] = cuda_ms(lambda: app._chunk(chunk_dev, app._pts_dev), 3)
         return out
 
-    return scan, stages, f"1080p, chunks of {chunk}"
+    return scan, stages, f"1080p, chunks of {chunk}", (app,)
 
 
 def ego_setup(dev, pairs: int, gpu_geometry: bool = False):
@@ -273,7 +278,7 @@ def ego_setup(dev, pairs: int, gpu_geometry: bool = False):
             lambda: odo._window_solve(obs, mask, solved), 3)
         return out
 
-    return scan, stages, f"1080p, 256 slots, windows on {geo.type}"
+    return scan, stages, f"1080p, 256 slots, windows on {geo.type}", ()
 
 
 def batch_setup(dev, pairs: int):
@@ -302,7 +307,7 @@ def batch_setup(dev, pairs: int):
                 lambda: lk_grid.lk_grid_flow_prepared(prev, cur, pts, params), 10)
         return out
 
-    return scan, stages, f"{len(streams)} streams x 1080p"
+    return scan, stages, f"{len(streams)} streams x 1080p", ()
 
 
 SETUPS = {"sparse": sparse_setup, "dense": dense_setup, "tracker": tracker_setup, "app": app_setup,
@@ -317,6 +322,8 @@ def main() -> int:
     ap.add_argument("--warp-mode", default="auto", help="FarnebackParams.warp_mode of --path dense")
     ap.add_argument("--gpu-geometry", action="store_true",
                     help="--path ego: solve the windows on the GPU (geometry_device) instead of the host")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every captured step as its eager form (__wrapped__) instead of replaying its graph")
     args = ap.parse_args()
     if args.out is None:
         suffix = "" if args.path == "sparse" else f"_{args.path}"
@@ -324,6 +331,8 @@ def main() -> int:
             suffix += f"_{args.warp_mode}"
         if args.path == "ego" and args.gpu_geometry:
             suffix += "_gpu"
+        if args.eager:
+            suffix += "_eager"
         args.out = Path(f"build/profile_torch_scan{suffix}.txt")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_scan: needs a CUDA GPU")
@@ -336,9 +345,18 @@ def main() -> int:
     extra = {"warp_mode": args.warp_mode} if args.path == "dense" else {}
     if args.path == "ego":
         extra = {"gpu_geometry": args.gpu_geometry}
-    scan, stages_fn, size = SETUPS[args.path](dev, args.pairs, **extra)
+    scan, stages_fn, size, objs = SETUPS[args.path](dev, args.pairs, **extra)
+    form = eager(*objs) if args.eager else contextlib.nullcontext()
+    with form:
+        summary = measure(args, smi, scan, stages_fn, size, extra)
+    print(json.dumps(summary))
+    return 0
 
-    scan()  # builds the kernel, warms the caching allocator
+
+def measure(args, smi: str, scan, stages_fn, size: str, extra: dict) -> dict:
+    """Times, profiles and stage-times `scan`; prints the readings and
+    writes the tables; returns the summary."""
+    scan()  # builds the kernel, warms the caching allocator, captures the graphs
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -365,7 +383,7 @@ def main() -> int:
         e.name for e in events if e.device_type == DeviceType.CUDA and e.name.startswith("Memcpy")
     )
     device_ms = sum(dev_us.values()) / 1e3
-    launches = sum(n for name, n in api.items() if name.startswith("cudaLaunch"))
+    launches = sum(n for name, n in api.items() if name.startswith("cudaLaunch") or name == "cudaGraphLaunch")
     # per pair; the batch runner's per step, its warm-up step included
     unit, units = ("step", args.pairs + 1) if args.path == "batch" else ("pair", args.pairs)
     stages = stages_fn()
@@ -376,7 +394,8 @@ def main() -> int:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
         f.write("\n")
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25))
-    print(f"{args.path} scan {args.pairs} pairs {size}: wall {wall_ms:.2f} ms unprofiled (best of 3), "
+    form = "eager" if args.eager else "graphed"
+    print(f"{args.path} scan {args.pairs} pairs {size}, {form}: wall {wall_ms:.2f} ms unprofiled (best of 3), "
           f"device {device_ms:.3f} ms profiled, busy share {device_ms / wall_ms:.3f}")
     print(f"host API calls per {unit}: "
           + ", ".join(f"{k} {v / units:.1f}" for k, v in api.most_common(6)))
@@ -393,16 +412,15 @@ def main() -> int:
     print(f"stage times, one {unit} (ms, CUDA events, mean of 10): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     print(f"profiler tables: {args.out}")
-    print(json.dumps({
-        "gpu": smi, "path": args.path, **extra, "pairs": args.pairs, "wall_ms": wall_ms,
+    return {
+        "gpu": smi, "path": args.path, **extra, "form": form, "pairs": args.pairs, "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms,
         f"launches_per_{unit}": launches / units, "api_calls": dict(api),
         "device_copies": dict(copies),
         "device_ms_by_kind": {k: v / 1e3 for k, v in dev_us.items()},
         "top_device_ops_ms": {k: v / 1e3 for k, v in op_us.most_common(8)},
         "stage_ms": stages,
-    }))
-    return 0
+    }
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import sample_texture, scene_table, smooth_texture, tracker_points
+from chip_smoke import counted, eager, sample_texture, scene_table, smooth_texture, strict_replays, tracker_points
 
 from hackathonopticalflow_tpu_torch.core import (
     TRACKER_LK,
@@ -33,6 +33,8 @@ from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
+from hackathonopticalflow_tpu_torch.utils import graphs
+import torch_graph_steps as graph_steps
 
 # the package's ops/__init__ re-exports a function named farneback
 tfb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
@@ -136,11 +138,9 @@ def test_farneback_video_modes_kernel_path_matches_plain(cuda_device, mode):
     on both paths)."""
     params = FarnebackParams(warp_mode=mode)
     clip = torch.from_numpy(np.stack(_frames(3, 144, 256, 1, 1))).to(cuda_device)
-    before = warp_bilinear.launches
-    got = tdense.farneback_flow_video(clip, params, device=cuda_device)
-    torch.cuda.synchronize()
-    assert warp_bilinear.launches - before == 2 * params.iterations * (params.levels + 1)
-    with mock.patch.object(tfb, "warp_bilinear", warp_bilinear_reference):
+    got, runs = counted(lambda: tdense.farneback_flow_video(clip, params, device=cuda_device))
+    assert runs.replayed["warp_bilinear"] == 2 * params.iterations * (params.levels + 1)
+    with eager(), mock.patch.object(tfb, "warp_bilinear", warp_bilinear_reference):
         want = tdense.farneback_flow_video(clip, params, device=cuda_device)
     assert torch.equal(got, want)
 
@@ -151,11 +151,9 @@ def test_farneback_video_kernel_path_matches_plain(cuda_device):
     the rest of the path is the same ops on the same inputs."""
     params = FarnebackParams()
     clip = torch.from_numpy(np.stack(_frames(3, 144, 256, 1, 1))).to(cuda_device)
-    before = warp_bilinear.launches
-    got = tdense.farneback_flow_video(clip, params, device=cuda_device)
-    torch.cuda.synchronize()
-    assert warp_bilinear.launches - before == 2 * params.iterations * (params.levels + 1)
-    with mock.patch.object(tfb, "warp_bilinear", warp_bilinear_reference):
+    got, runs = counted(lambda: tdense.farneback_flow_video(clip, params, device=cuda_device))
+    assert runs.replayed["warp_bilinear"] == 2 * params.iterations * (params.levels + 1)
+    with eager(), mock.patch.object(tfb, "warp_bilinear", warp_bilinear_reference):
         want = tdense.farneback_flow_video(clip, params, device=cuda_device)
     assert torch.equal(got, want)
 
@@ -207,11 +205,9 @@ def test_tracker_kernel_path_matches_plain(cuda_device, lanes):
     params = TrackerParams(lk=lk, max_tracks=64, features=FeatureParams(max_candidates=256))
     clip = torch.from_numpy(np.stack(_frames(4, 144, 256, 2, 1))).to(cuda_device)
     s0 = ttr.track_step(ttr.init_tracker(params), clip[0], clip[0], params, device=cuda_device)
-    before = (lk_level.launches, patch_bilinear.launches)
-    got, hist = ttr.track_video(clip, params, s0, device=cuda_device)
-    torch.cuda.synchronize()
-    assert lk_level.launches - before[0] == 3 * 6 and patch_bilinear.launches - before[1] == 3 * 8
-    with mock.patch.object(tlk, "lk_level", lk_level_reference), \
+    (got, hist), runs = counted(lambda: ttr.track_video(clip, params, s0, device=cuda_device))
+    assert runs.replayed["lk_level"] == 3 * 6 and runs.replayed["patch_bilinear"] == 3 * 8
+    with eager(), mock.patch.object(tlk, "lk_level", lk_level_reference), \
             mock.patch.object(tpatch, "patch_bilinear", patch_bilinear_reference):
         want, want_hist = ttr.track_video(clip, params, s0, device=cuda_device)
     for name in ("traj", "length", "alive"):
@@ -485,8 +481,9 @@ def test_two_gloo_ranks_share_the_gpu(cuda_device):
     """Two gloo ranks on cuda:0 (parallel/mesh.py::run_on_mesh): halo
     exchange of CUDA tensors in every mode (the gloo route stages them
     through the host) equal to slices of the padded frame, and
-    stream_batched_grid_flow (one stream a rank, production params, 3
-    lk_level launches a rank) identical to each stream's lk_grid_flow."""
+    stream_batched_grid_flow (one stream a rank, production params, 6
+    lk_level launches a rank: the warm-up and the capture of lk_grid_flow's
+    graph) identical to each stream's lk_grid_flow."""
     import torch_parallel_ranks as ranks
 
     from hackathonopticalflow_tpu_torch import kernels, parallel
@@ -505,7 +502,7 @@ def test_two_gloo_ranks_share_the_gpu(cuda_device):
             assert np.array_equal(out[r][f"halo_{mode}"].numpy(), padded[r * 32 : r * 32 + 32 + 2 * h]), (mode, r)
     pts = torch.from_numpy(inp["pts"])
     for r in range(2):
-        assert out[r]["lk_level_launches"] == PARAMS.max_level + 1
+        assert out[r]["lk_level_launches"] == 2 * (PARAMS.max_level + 1)
         want = lk_grid_flow(torch.from_numpy(inp["streams"][0][r]), torch.from_numpy(inp["streams"][1][r]), pts,
                             lk=PARAMS, device=cuda_device)
         for field, value in zip(want._fields, want):
@@ -530,3 +527,86 @@ def test_ego_motion_default_route_matches_gpu_geometry(cuda_device):
     assert host.kf_idx.tolist() == card.kf_idx.tolist() and len(host.kf_idx) >= 4
     span = np.linalg.norm(host.centers - host.centers[0], axis=-1).max()
     assert np.abs(host.centers - card.centers).max() <= 1e-3 * span
+
+
+def _leaves(tree):
+    return [x for x in torch.utils._pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", list(graph_steps.STEPS))
+def test_graphed_step_replays_its_eager_form(cuda_device, step):
+    """Each captured step: its first call (warm-up, capture, replay) and a
+    second one (a replay, under sync debug mode "error") equal the eager
+    form (__wrapped__, nested steps eager too) with torch.equal; one graph
+    for the key; an earlier output is not overwritten by the later
+    replay."""
+    fn, args = graph_steps.STEPS[step](cuda_device)
+    fn.clear()
+    owner = getattr(fn.__wrapped__, "__self__", None)  # the app whose chunk it is
+    with eager(*([] if owner is None else [owner])):
+        want = fn.__wrapped__(*args)
+    first = fn(*args)
+    with strict_replays():
+        second = fn(*args)
+    torch.cuda.synchronize()
+    assert len(fn._entries) == 1
+    for got in (first, second):
+        assert len(_leaves(got)) == len(_leaves(want))
+        for g, w in zip(_leaves(got), _leaves(want)):
+            assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_graphed_new_shape_captures_a_second_graph(cuda_device):
+    """A call at a new frame size captures a second graph; both sizes
+    replay their eager results."""
+    fn = graph_steps.STEPS["sparse pair"](cuda_device)[0]
+    fn.clear()
+    for h, w in ((144, 256), (160, 288), (144, 256)):
+        _, args = graph_steps.sparse_pair(cuda_device, h, w)
+        got, want = fn(*args), fn.__wrapped__(*args)
+        assert all(torch.equal(g, x) for g, x in zip(_leaves(got), _leaves(want)))
+    assert len(fn._entries) == 2
+
+
+@pytest.mark.cuda
+def test_graphed_output_survives_later_replays(cuda_device):
+    """An output handed out is a copy: replaying the graph on other inputs
+    leaves it as it was."""
+    fn = graphs.graphed(lambda x: (x * 2.0 + 1.0).cumsum(0))
+    x1 = torch.arange(8.0, device=cuda_device)
+    out1 = fn(x1)
+    fn(x1 + 100.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, (x1 * 2.0 + 1.0).cumsum(0))
+
+
+@pytest.mark.cuda
+def test_graphed_keeps_what_it_reads_alive(cuda_device):
+    """A tensor the capture read from outside (a cache's entry) stays
+    alive with the graph: dropped from the cache and its memory offered
+    to new tensors, the replay still reads its values."""
+    cache = {"c": torch.arange(4.0, device=cuda_device)}
+    fn = graphs.graphed(lambda x: x + cache["c"])
+    x = torch.ones(4, device=cuda_device)
+    fn(x)
+    del cache["c"]
+    junk = [torch.full((4,), 7.0, device=cuda_device) for _ in range(64)]
+    torch.cuda.synchronize()
+    assert torch.equal(fn(x), x + torch.arange(4.0, device=cuda_device)) and len(junk) == 64
+
+
+@pytest.mark.cuda
+def test_graphed_capture_failure_raises(cuda_device):
+    """A function that reads a device value on the host cannot be
+    captured: the call raises, keeps no graph, and raises again; the
+    device stays usable."""
+    fn = graphs.graphed(lambda x: x * float(x.sum()))
+    x = torch.ones(4, device=cuda_device)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            fn(x)
+        assert fn._entries == {}
+    torch.cuda.synchronize()
+    assert torch.equal(fn.__wrapped__(x), x * 4.0)
