@@ -32,11 +32,18 @@ Phases, in order; any failure exits non-zero:
 5. sparse times: steady-state fps of the 48-pair scan through the kernel
    and of a few pairs through the plain version; the kernel's time per
    level;
-6. warp_bilinear kernel vs its plain version on the (5, Hk, Wk)
-   coefficient pyramids of one 720p pair at all 4 level sizes, sampled at
-   the flow of one Farneback iteration: identical over every pixel (both
-   round every product and sum alike), and the device time of each per
-   level (CUDA events around a replayed CUDA graph of many launches);
+6. warp_bilinear kernel (gather geometry) vs its plain version on the
+   (5, Hk, Wk) coefficient pyramids of one 720p pair at all 4 level sizes,
+   sampled at the flow of one Farneback iteration (and at the coarsest
+   and finest sizes at a spread field whose samples clamp to the plane),
+   on the float32 and the bf16 source, and on a ragged (20, 200) plane and
+   a stream axis of 4: identical over every pixel (both round every
+   product and sum alike); per level, the device time (CUDA events
+   around a replayed CUDA graph of many launches) beside its bound and
+   the launch floor (launch_floor_ms, measured once before this phase),
+   the share of the bound and of max(bound, floor), the launch it made,
+   and every launch the kernel takes (launch_shapes) checked identical
+   and timed beside launch_shape's pick;
 7. dense main path: farneback_flow_video over a 25-frame 720p clip (24
    pairs) and farneback_flow over one pair at the reference params;
    finite fields, >= 12 warp launches per pair, farneback_flow equal to
@@ -103,9 +110,11 @@ Phases, in order; any failure exits non-zero:
     beside phase 11's tracker scan, and its syncs per frame;
 18. warp_bilinear's slab geometry (warp_mode "pallas", and "pallas_bf16"
     on a bf16 source) against its plain version at the 4 720p level sizes
-    (the flow of one iteration) and on an out-of-margin field whose
-    samples clamp (90x160 and 720x1280): identical; each variant's device
-    time per level, its bound and F.grid_sample's time;
+    (the flow of one iteration), on an out-of-margin field whose samples
+    clamp (90x160 and 720x1280), and on phase 6's ragged plane and stream
+    axis: identical; each variant's device time per level beside its
+    bound and phase 6's launch floor (shares as phase 6), F.grid_sample's
+    time, the launch, and every launch the kernel takes, as phase 6;
 19. the other warp modes over the 24-pair 720p clip: farneback_flow_video
     in "packed", "pallas" and "pallas_bf16", farneback_flow pair by pair
     in "image" and "hybrid": finite, median EPE < TOL_DENSE_EPE_PX,
@@ -441,6 +450,16 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+FLOOR_REPLAYS = 5  # graph replays of launch_floor_ms, the least taken
+
+
+def launch_floor_ms(dev) -> float:
+    """The least time a kernel launch takes on the card: the least of
+    FLOOR_REPLAYS graph_ms readings of a one-element in-place add."""
+    one = torch.zeros(1, device=dev)
+    return min(graph_ms(lambda: one.add_(1.0), 50) for _ in range(FLOOR_REPLAYS))
+
+
 def bound(n_bytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0) -> tuple[float, str]:
     """(least ms an H100 could take, what bounds it): the larger of the
     bytes over HBM_BYTES_PER_S and the operations over their peak rates."""
@@ -736,8 +755,105 @@ def grid_sample_ms(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor, padding_
     )
 
 
-def dense_phases(dev, clip) -> dict:
-    """Phases 6-8: the dense Farneback path through warp_bilinear."""
+def _spread_field(xs, ys, amp: float):
+    """Absolute coordinates displaced by a smooth field of amplitude amp px
+    (phase 18's SLAB_SPREAD_PX: samples past the TPU slab's margins, and
+    past the plane's borders)."""
+    h, w = ys.shape[-2], xs.shape[-1]
+    return ((xs + amp * torch.sin(ys / 3.0 + xs / 17.0)).expand(h, w).contiguous(),
+            (ys + amp * torch.cos(xs / 5.0)).expand(h, w).contiguous())
+
+
+def warp_case(src, fx, fy, geometry: str, label: str) -> float:
+    """One warp_bilinear launch against its plain version: identical, or
+    the run fails; returns max |d| (0)."""
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
+
+    warp_bilinear.launches = 0
+    out_k = warp_bilinear(src, fx, fy, geometry)
+    torch.cuda.synchronize()
+    launches = warp_bilinear.launches
+    out_p = warp_bilinear_reference(src, fx, fy, geometry)
+    err = float((out_k - out_p).abs().max())
+    if launches != 1 or not torch.equal(out_k, out_p):
+        raise SystemExit(f"warp {geometry} {label}: kernel disagrees with the plain version (max |d| {err:.3g}, "
+                         f"launches {launches})")
+    return err
+
+
+def warp_edge_cases(dev, geometry: str) -> float:
+    """warp_bilinear in `geometry` against its plain version where the
+    720p path's level sizes do not reach: a ragged (20, 200) plane, whose
+    tiles run past the image, and a stream axis of 4 at 90x160; on the
+    float32 and bf16 source, with fields inside the slab's margins (3 px)
+    and spread past them (SLAB_SPREAD_PX). Returns max |d| (0)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n, err = 0, 0.0
+    for b, h, w in ((1, 20, 200), (4, 90, 160)):
+        src = torch.randn((b, 5, h, w), generator=g, device=dev) * 100
+        xs = torch.arange(w, dtype=torch.float32, device=dev)
+        ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        for amp in (3.0, SLAB_SPREAD_PX):
+            fx, fy = (f + 4.0 * torch.rand((b, h, w), generator=g, device=dev) - 2.0 for f in _spread_field(xs, ys, amp))
+            for dtype in (torch.float32, torch.bfloat16):
+                label = f"{b}x5x{h}x{w} amp {amp:g} {str(dtype)[6:]}"
+                err = max(err, warp_case(src.to(dtype), fx.contiguous(), fy.contiguous(), geometry, label))
+                n += 1
+    log(f"warp {geometry} edge cases (ragged 20x200, a stream axis of 4 at 90x160; f32 and bf16 source; "
+        f"fields of 3 and {SLAB_SPREAD_PX:g} px): {n} launches identical to the plain version")
+    return err
+
+
+def warp_level_line(kind: str, key: str, ms: float, plain_ms: float, lib_ms: float, bound_ms: float,
+                    bound_by: str, floor_ms: float) -> str:
+    """A level's times beside its bound and the launch floor: the share of
+    the bound, and of max(bound, floor), the least time the card could
+    take for the work in one launch; and the launch warp_bilinear made
+    last."""
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
+
+    shape = warp_bilinear.last_launch
+    return (f"{kind} {key}: device time (graph replay) warp_bilinear {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.grid_sample {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), launch floor {floor_ms:.4f} ms; "
+            f"share of bound {bound_ms / ms:.3f}, of max(bound, floor) {max(bound_ms, floor_ms) / ms:.3f}; "
+            f"launch {shape.grid} blocks (groups {shape.groups}, splits {shape.splits})")
+
+
+def warp_launch_ranking(kind: str, key: str, src, fx, fy, geometry: str) -> None:
+    """Every launch the kernel takes for this call (launch_shapes) against
+    the plain version (identical, or the run fails), then timed by graph
+    replay, the least of two rounds taken in turns; logs them fastest
+    first beside launch_shape's pick. These launches are not counted."""
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import (
+        _launch,
+        launch_shape,
+        launch_shapes,
+        warp_bilinear_reference,
+    )
+
+    c, h, w = src.shape[-3:]
+    ref = warp_bilinear_reference(src, fx, fy, geometry)
+    out = torch.empty_like(ref)
+    shapes = launch_shapes(1, c, h, w, geometry)
+    for s in shapes:
+        out.fill_(float("nan"))
+        _launch(src, fx, fy, out, geometry, s)
+        if not torch.equal(out, ref):
+            raise SystemExit(f"{kind} {key} launch {tuple(s)}: the kernel disagrees with the plain version")
+    best = dict.fromkeys(shapes, float("inf"))
+    for _ in range(2):
+        for s in shapes:
+            best[s] = min(best[s], graph_ms(lambda s=s: _launch(src, fx, fy, out, geometry, s), 50))
+    order = sorted(shapes, key=best.get)
+    pick = launch_shape(1, c, h, w, geometry)
+    log(f"{kind} {key} launches (grid/groups/splits ms, fastest first; {len(shapes)} identical to the plain version; "
+        f"launch_shape's pick {pick.grid}/{pick.groups}/{pick.splits} ranks {order.index(pick) + 1}): "
+        + ", ".join(f"{s.grid}/{s.groups}/{s.splits} {best[s]:.4f}" for s in order))
+
+
+def dense_phases(dev, clip, floor_ms: float) -> dict:
+    """Phases 6-8: the dense Farneback path through warp_bilinear;
+    floor_ms is launch_floor_ms."""
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
     from hackathonopticalflow_tpu_torch.flow import dense
     fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
@@ -750,8 +866,8 @@ def dense_phases(dev, clip) -> dict:
     # ---- 6. kernel vs plain at the 4 level sizes of one pair ----
     rs0 = fb.prepare_frame(clip[0], params)
     rs1 = fb.prepare_frame(clip[1], params)
-    max_err = 0.0
-    level_ms, level_plain_ms, level_lib_ms = {}, {}, {}
+    max_err = warp_edge_cases(dev, "gather")
+    level_ms, level_plain_ms, level_lib_ms, level_bound_ms = {}, {}, {}, {}
     n_bytes = f32_ops = 0.0
     for r0, r1 in zip(rs0, rs1):
         hk, wk = r0.shape[-2:]
@@ -760,19 +876,16 @@ def dense_phases(dev, clip) -> dict:
         xs, ys = fb._pixel_coords(hk, wk, dev)
         fx = (xs + flow[..., 0]).contiguous()
         fy = (ys + flow[..., 1]).contiguous()
-        warp_bilinear.launches = 0
-        out_k = warp_bilinear(r1, fx, fy)
-        torch.cuda.synchronize()
-        launches = warp_bilinear.launches
-        out_p = warp_bilinear_reference(r1, fx, fy)
-        err = float((out_k - out_p).abs().max())
-        same = bool(torch.equal(out_k, out_p))
         key = f"{hk}x{wk}"
-        log(f"warp {key}: launches {launches}, max |d| {err:.3g}, identical {same}, "
-            f"flow max |f| {float(flow.abs().max()):.3f} px")
-        if launches != 1 or not same:
-            raise SystemExit(f"warp {key}: kernel disagrees with the plain version")
-        max_err = max(max_err, err)
+        # the flow of one iteration on the float32 source (the path's) and
+        # the bf16 one; at the coarsest and finest sizes also a spread field
+        fields = [("flow", fx, fy)] + ([("spread", *_spread_field(xs, ys, SLAB_SPREAD_PX))]
+                                        if hk in (90, DENSE_H) else [])
+        for field, gx, gy in fields:
+            for src in (r1, r1.to(torch.bfloat16)):
+                max_err = max(max_err, warp_case(src, gx, gy, "gather", f"{key} {field} {src.dtype}"))
+        log(f"warp {key}: flow max |f| {float(flow.abs().max()):.3f} px; {2 * len(fields)} launches "
+            f"({', '.join(f for f, _, _ in fields)}; float32 and bf16 source) identical to the plain version")
         level_ms[key] = graph_ms(lambda: warp_bilinear(r1, fx, fy), 50)
         level_plain_ms[key] = graph_ms(lambda: warp_bilinear_reference(r1, fx, fy), 10)
         # the same sampling with border clamping (the warp clamps its corners
@@ -785,10 +898,11 @@ def dense_phases(dev, clip) -> dict:
         lv_ops = (18 + 7 * c) * hk * wk  # corners, fractions, weights; 7 per channel
         n_bytes += lv_bytes
         f32_ops += lv_ops
-        log(f"warp {key}: device time (graph replay) warp_bilinear {level_ms[key]:.4f} ms, "
-            f"plain {level_plain_ms[key]:.4f} ms, F.grid_sample {level_lib_ms[key]:.4f} ms, "
-            "bound %.4f ms (%s); " % bound(lv_bytes, lv_ops)
-            + f"eager call to call {call_ms:.4f} ms, plain {call_plain_ms:.4f} ms")
+        level_bound_ms[key], lv_by = bound(lv_bytes, lv_ops)
+        log(warp_level_line("warp", key, level_ms[key], level_plain_ms[key], level_lib_ms[key], level_bound_ms[key],
+                            lv_by, floor_ms)
+            + f"; eager call to call {call_ms:.4f} ms, plain {call_plain_ms:.4f} ms")
+        warp_launch_ranking("warp", key, r1, fx, fy, "gather")
 
     # ---- 7. main path ----
     (flows, one), cnt = counted(lambda: (dense.farneback_flow_video(clip, params, device=dev),
@@ -852,6 +966,10 @@ def dense_phases(dev, clip) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": sum(level_lib_ms.values()),
+            "launch_floor_ms": floor_ms,
+            "shape_ms": level_ms,
+            "shape_bound_ms": level_bound_ms,
+            "shape_library_ms": level_lib_ms,
         },
         "dense_fps": fps,
         "plain_dense_fps": plain_fps,
@@ -1678,16 +1796,18 @@ def _slab_bytes_ops(c: int, hk: int, wk: int, src_bytes: int) -> tuple[float, fl
     return (8 + c * (src_bytes + 4)) * hk * wk, (14 + 9 * c) * hk * wk
 
 
-def slab_phase(dev, clip) -> dict:
+def slab_phase(dev, clip, floor_ms: float) -> dict:
     """Phase 18: warp_bilinear's slab geometry (warp_mode "pallas", and
     "pallas_bf16" on a bf16 source) against its plain version on the
     (5, Hk, Wk) coefficient pyramids of one 720p pair at the 4 level sizes,
     sampled at the flow of one Farneback iteration, and on an
     out-of-margin field (spread SLAB_SPREAD_PX px, samples clamped) at the
-    coarsest and finest sizes: identical. Device time of each variant per
-    level (graph replay), its bound (the bf16 source at 2 B a value) and
-    F.grid_sample's time on the float32 source (border padding: within the
-    margins the same samples; no PyTorch call samples a bf16 source at
+    coarsest and finest sizes, and on warp_edge_cases: identical. Device
+    time of each variant per level (graph replay), its bound (the bf16
+    source at 2 B a value), its share of the bound and of max(bound,
+    floor_ms), the launch, every launch the kernel takes timed beside it,
+    and F.grid_sample's time on the float32 source (border padding: within
+    the margins the same samples; no PyTorch call samples a bf16 source at
     float32 coordinates)."""
     from hackathonopticalflow_tpu_torch.core import FarnebackParams
     fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
@@ -1698,12 +1818,13 @@ def slab_phase(dev, clip) -> dict:
         warp_bilinear_reference,
     )
 
+    edge_err = warp_edge_cases(dev, "slab")
     out = {}
     for variant, mode in (("f32", "pallas"), ("bf16", "pallas_bf16")):
         params = FarnebackParams(warp_mode=mode)
         rs0, rs1 = fb.prepare_frame(clip[0], params), fb.prepare_frame(clip[1], params)
         src_bytes = 2 if variant == "bf16" else 4
-        max_err = 0.0
+        max_err = edge_err
         level_ms, level_plain_ms, level_lib_ms, level_bound_ms = {}, {}, {}, {}
         n_bytes = f32_ops = 0.0
         for r0, r1 in zip(rs0, rs1):
@@ -1715,8 +1836,7 @@ def slab_phase(dev, clip) -> dict:
             key = f"{hk}x{wk}"
             fields = [("flow", (xs + flow[..., 0]).contiguous(), (ys + flow[..., 1]).contiguous())]
             if hk in (90, DENSE_H):
-                fields.append(("spread", (xs + SLAB_SPREAD_PX * torch.sin(ys / 3.0 + xs / 17.0)).contiguous(),
-                               (ys + SLAB_SPREAD_PX * torch.cos(xs / 5.0)).expand(hk, wk).contiguous()))
+                fields.append(("spread", *_spread_field(xs, ys, SLAB_SPREAD_PX)))
             for field, fx, fy in fields:
                 warp_bilinear.launches = 0
                 out_k = warp_bilinear(src, fx, fy, "slab")
@@ -1738,12 +1858,12 @@ def slab_phase(dev, clip) -> dict:
             level_plain_ms[key] = graph_ms(lambda: warp_bilinear_reference(src, fx, fy, "slab"), 10)
             level_lib_ms[key] = grid_sample_ms(r1, fx, fy, "border", 50)
             lv_bytes, lv_ops = _slab_bytes_ops(r1.shape[0], hk, wk, src_bytes)
-            level_bound_ms[key], _ = bound(lv_bytes, lv_ops)
+            level_bound_ms[key], lv_by = bound(lv_bytes, lv_ops)
             n_bytes += lv_bytes
             f32_ops += lv_ops
-            log(f"slab {variant} {key}: device time (graph replay) warp_bilinear {level_ms[key]:.4f} ms, "
-                f"plain {level_plain_ms[key]:.4f} ms, F.grid_sample {level_lib_ms[key]:.4f} ms, "
-                "bound %.4f ms (%s)" % bound(lv_bytes, lv_ops))
+            log(warp_level_line(f"slab {variant}", key, level_ms[key], level_plain_ms[key], level_lib_ms[key],
+                                level_bound_ms[key], lv_by, floor_ms))
+            warp_launch_ranking(f"slab {variant}", key, src, fx, fy, "slab")
         bound_ms, bound_by = bound(n_bytes, f32_ops)
         log(f"warp_bilinear slab {variant} per level (device ms, kernel / plain / F.grid_sample / bound): "
             + ", ".join(f"{k} {level_ms[k]:.4f} / {level_plain_ms[k]:.4f} / {level_lib_ms[k]:.4f} / "
@@ -1761,6 +1881,7 @@ def slab_phase(dev, clip) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": sum(level_lib_ms.values()),
+            "launch_floor_ms": floor_ms,
             "shape_ms": level_ms,
             "shape_bound_ms": level_bound_ms,
             "shape_library_ms": level_lib_ms,
@@ -2764,7 +2885,10 @@ def main() -> int:
     log(f"1080p clip: {tuple(clip.shape)} uint8, zoom {ZOOM}/frame")
     sparse = phase(sparse_phases, dev, clip)
     dense_clip = make_clip(dev, DENSE_H, DENSE_W, DENSE_FRAMES, DENSE_CELL)
-    dense = phase(dense_phases, dev, dense_clip)
+    floor_ms = launch_floor_ms(dev)
+    log(f"launch floor (the least of {FLOOR_REPLAYS} graph replays of a one-element in-place add): "
+        f"{floor_ms:.4f} ms")
+    dense = phase(dense_phases, dev, dense_clip, floor_ms)
     track = phase(tracker_phases, dev, clip)
     new_lk = phase(new_lk_phases, dev, clip)
     exact_pb = phase(exact_patch_phase, dev, clip)
@@ -2773,7 +2897,7 @@ def main() -> int:
     app = phase(app_phase, dev, clip, sparse["scan_fps"])
     ego = phase(ego_phase, dev, clip, track.pop("history"))
     track_app = phase(tracker_app_phase, dev, clip, track["tracker_fps"])
-    slab = phase(slab_phase, dev, dense_clip)
+    slab = phase(slab_phase, dev, dense_clip, floor_ms)
     modes = phase(dense_modes_phase, dev, dense_clip)
     viewer = phase(dense_viewer_phase, dev, dense_clip, modes["fps"])
     batch = phase(batch_phase, dev, sparse["scan_fps"])

@@ -27,11 +27,16 @@ The source is float32 or bfloat16 (warp_mode "pallas_bf16" rounds it once
 per level, as the TPU's bf16 slab); the result is float32. The kernel
 rounds every product and sum separately (__fmul_rn/__fadd_rn, -fmad=false),
 as the separate PyTorch ops below do, so the two agree bit for bit.
+
+`launch_shape` picks the kernel's launch from the call's shape alone,
+among `launch_shapes`, every launch the kernel takes; the CUDA side
+refuses any other.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +48,58 @@ TH, TW = 8, 128
 PADT, PADL = 72, 128
 YI_MAX = 80
 _SENTINEL = 1 << 30
+
+# the kernel's launch (csrc/warp_bilinear.cu); launch_shape is a pure
+# function of the call's shape, so the CPU tests check it without a card
+SMS = 132  # streaming multiprocessors of an H100 SXM, the card it fills
+THREADS = 256  # gather: a block's pixels; slab: a tile's threads, 4 pixels each
+ALL_CHANNELS = 5  # C of the only caller: a block may blend all of them
+SPLITS = (1, 2)  # slab: blocks that may share a tile, by rows
+
+
+class LaunchShape(NamedTuple):
+    """One launch of the kernel: a 1-D grid of `grid` blocks; `groups`
+    blocks share a set of pixels (1: each blends all 5 channels; C: one
+    channel each); in the slab geometry `splits` blocks share a tile, each
+    blending 8 / splits of its rows (gather: 1)."""
+
+    grid: int
+    groups: int
+    splits: int
+
+
+def blocks_per_plane(h: int, w: int, geometry: str, splits: int = 1) -> int:
+    """Blocks over one (h, w) plane's pixels: THREADS pixels a block
+    (gather), or `splits` blocks an (8, 128) tile (slab)."""
+    if geometry == "slab":
+        return -(-h // TH) * -(-w // TW) * splits
+    if geometry == "gather":
+        return -(-h * w // THREADS)
+    raise ValueError(f"geometry must be one of {GEOMETRIES}, got {geometry!r}")
+
+
+def launch_shapes(b: int, c: int, h: int, w: int, geometry: str) -> list[LaunchShape]:
+    """Every launch the kernel takes for a (b, c, h, w) call in
+    `geometry`: all 5 channels a block (C = 5 only) or one, and in the
+    slab geometry each of SPLITS."""
+    groups = (1, c) if c == ALL_CHANNELS else (c,)
+    splits = SPLITS if geometry == "slab" else (1,)
+    return [LaunchShape(blocks_per_plane(h, w, geometry, s) * b * g, g, s) for g in groups for s in splits]
+
+
+def launch_shape(b: int, c: int, h: int, w: int, geometry: str) -> LaunchShape:
+    """The kernel's launch for a (b, c, h, w) call in `geometry`, the
+    fastest of launch_shapes at each level of the 720p dense path
+    (chip_smoke.py phases 6 and 18 time them all): blocks blending all 5
+    channels of their pixels, unless that leaves fewer blocks than the
+    card has SMs; then, and for any other C, one channel a block. A slab
+    tile goes to 2 blocks where its blocks would give the SMs at least one
+    but fewer than two each (360x640); 2 measured slower at the other
+    three levels."""
+    n = blocks_per_plane(h, w, geometry) * b
+    groups = 1 if c == ALL_CHANNELS and n >= SMS else c
+    splits = 2 if geometry == "slab" and SMS <= n * groups < 2 * SMS else 1
+    return LaunchShape(n * splits * groups, groups, splits)
 
 
 def _corners(fx: torch.Tensor, fy: torch.Tensor, h: int, w: int):
@@ -149,7 +206,7 @@ def _lib():
     fn = lib.warp_bilinear_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, i, i, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -163,7 +220,8 @@ def warp_bilinear(
 
     CPU tensors run `warp_bilinear_reference`; CUDA tensors launch the
     kernel on the current stream (counted in `warp_bilinear.launches`, both
-    geometries) or raise."""
+    geometries; the launch `launch_shape` gave it kept in
+    `warp_bilinear.last_launch`) or raise."""
     _check(src, fx, fy, geometry)
     dev = src.device
     if dev.type == "cpu":
@@ -174,18 +232,27 @@ def warp_bilinear(
     if out.numel() == 0:
         return out
     c, h, w = src.shape[-3:]
-    b = src.numel() // (c * h * w)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.warp_bilinear_launch(
-            src.data_ptr(), int(src.dtype == torch.bfloat16), int(geometry == "slab"),
-            fx.data_ptr(), fy.data_ptr(), out.data_ptr(), b, c, h, w, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"warp_bilinear launch failed: cudaError {rc}")
+    shape = launch_shape(src.numel() // (c * h * w), c, h, w, geometry)
+    _launch(src, fx, fy, out, geometry, shape)
     warp_bilinear.launches += 1
+    warp_bilinear.last_launch = shape
     return out
 
 
+def _launch(src, fx, fy, out, geometry: str, shape: LaunchShape) -> None:
+    """One launch of the kernel on CUDA tensors as `warp_bilinear` checks
+    them, into out, with the given launch; raises if it fails."""
+    c, h, w = src.shape[-3:]
+    dev = src.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().warp_bilinear_launch(
+            src.data_ptr(), int(src.dtype == torch.bfloat16), int(geometry == "slab"),
+            fx.data_ptr(), fy.data_ptr(), out.data_ptr(), src.numel() // (c * h * w), c, h, w, *shape, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"warp_bilinear launch failed: cudaError {rc}")
+
+
 warp_bilinear.launches = 0
+warp_bilinear.last_launch = None

@@ -88,17 +88,37 @@ def test_lk_level_kernel_matches_plain(cuda_device, level):
     assert torch.equal(tl_k, tl_p)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(90, 160), (361, 643)])
-def test_warp_bilinear_kernel_matches_plain(cuda_device, hw):
-    """Identical over every pixel, inside the frame and past its borders:
-    both round every product and sum alike (no FMA contraction)."""
-    h, w = hw
-    rng = np.random.RandomState(h)
-    src = torch.from_numpy(rng.randn(2, 5, h, w).astype(np.float32) * 100).to(cuda_device)
+# (b, c, h, w) of the warp's GPU tests: the 720p dense path's level sizes,
+# the ragged shape, a stream axis of 4, odd sizes, the tiled ranks' 644-
+# and 1004-row slabs and their coarsest level, and other channel counts
+# (one channel a block); together they take every branch of launch_shape
+WARP_SHAPES = [(1, 5, 90, 160), (1, 5, 180, 320), (1, 5, 360, 640), (1, 5, 720, 1280), (1, 5, 20, 200),
+               (4, 5, 90, 160), (2, 5, 361, 643), (1, 5, 644, 1280), (1, 5, 1004, 1280), (1, 5, 81, 160),
+               (1, 1, 20, 200), (1, 3, 90, 160)]
+WARP_IDS = ["x".join(map(str, s)) for s in WARP_SHAPES]
+
+
+def _warp_inputs(device, b, c, h, w, dtype, amp, seed):
+    """A (b, c, h, w) source of `dtype` and coordinates fx, fy (b, h, w):
+    the pixel grid displaced by a smooth field of amplitude `amp` px and
+    +-2 px of noise (amp 150: samples past the TPU slab's margins)."""
+    rng = np.random.RandomState(seed)
+    src = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32) * 100).to(device).to(dtype)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    fx = torch.from_numpy(xx + rng.uniform(-8, 8, (2, h, w)).astype(np.float32)).to(cuda_device)
-    fy = torch.from_numpy(yy + rng.uniform(-8, 8, (2, h, w)).astype(np.float32)).to(cuda_device)
+    fx = xx + amp * np.sin(yy / 3.0 + xx / 17.0) + rng.uniform(-2, 2, (b, h, w))
+    fy = yy + amp * np.cos(xx / 5.0) + rng.uniform(-2, 2, (b, h, w))
+    fx, fy = (torch.from_numpy(f.astype(np.float32)).to(device) for f in (fx, fy))
+    return src, fx, fy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bchw", WARP_SHAPES, ids=WARP_IDS)
+def test_warp_bilinear_kernel_matches_plain(cuda_device, bchw, dtype):
+    """The gather geometry: identical over every pixel, inside the frame
+    and past its borders (an 8 px field): both round every product and
+    sum alike (no FMA contraction)."""
+    src, fx, fy = _warp_inputs(cuda_device, *bchw, dtype, 8.0, sum(bchw))
     before = warp_bilinear.launches
     out = warp_bilinear(src, fx, fy)
     torch.cuda.synchronize()
@@ -109,25 +129,43 @@ def test_warp_bilinear_kernel_matches_plain(cuda_device, hw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("spread", [False, True], ids=["in_margin", "spread"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("hw", [(90, 160), (180, 320), (360, 640), (720, 1280), (20, 200)])
-def test_warp_bilinear_slab_kernel_matches_plain(cuda_device, hw, dtype, spread):
-    """The slab geometry at the 720p dense path's level sizes and a ragged
-    shape, float32 and bf16 source, with flow inside the TPU kernel's
-    margins and flow whose spread clamps samples: identical over every
-    pixel."""
-    h, w = hw
-    rng = np.random.RandomState(h + spread)
-    src = torch.from_numpy(rng.randn(2, 5, h, w).astype(np.float32) * 100).to(cuda_device).to(dtype)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    amp = 150.0 if spread else 3.0
-    fx = xx + amp * np.sin(yy / 3.0 + xx / 17.0) + rng.uniform(-2, 2, (2, h, w))
-    fy = yy + amp * np.cos(xx / 5.0) + rng.uniform(-2, 2, (2, h, w))
-    fx, fy = (torch.from_numpy(f.astype(np.float32)).to(cuda_device) for f in (fx, fy))
+@pytest.mark.parametrize("bchw", WARP_SHAPES, ids=WARP_IDS)
+def test_warp_bilinear_slab_kernel_matches_plain(cuda_device, bchw, dtype, spread):
+    """The slab geometry at the 720p dense path's level sizes, the tiled
+    ranks' slab heights, a ragged shape and a stream axis, float32 and
+    bf16 source, with flow inside the TPU kernel's margins and flow whose
+    spread clamps samples: identical over every pixel."""
+    src, fx, fy = _warp_inputs(cuda_device, *bchw, dtype, 150.0 if spread else 3.0, sum(bchw) + spread)
     before = warp_bilinear.launches
     out = warp_bilinear(src, fx, fy, "slab")
     torch.cuda.synchronize()
     assert warp_bilinear.launches == before + 1
     assert torch.equal(out, warp_bilinear_reference(src, fx, fy, "slab"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["gather", "slab"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bchw", [(2, 5, 20, 200), (2, 5, 180, 320), (1, 3, 90, 160)],
+                         ids=["2x5x20x200", "2x5x180x320", "1x3x90x160"])
+def test_warp_bilinear_every_launch_matches_plain(cuda_device, bchw, dtype, geometry):
+    """Every launch the kernel takes (launch_shapes: all 5 channels a
+    block or one; in the slab geometry a tile to 1 or 2 blocks)
+    gives the plain version's result; a launch it does not take raises."""
+    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import _launch, launch_shapes
+
+    src, fx, fy = _warp_inputs(cuda_device, *bchw, dtype, 150.0, 7)
+    ref = warp_bilinear_reference(src, fx, fy, geometry)
+    shapes = launch_shapes(*bchw, geometry)
+    assert len(shapes) == (1 + (bchw[1] == 5)) * (2 if geometry == "slab" else 1)
+    for shape in shapes:
+        out = torch.full_like(ref, float("nan"))
+        _launch(src, fx, fy, out, geometry, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), shape
+    for bad in (shapes[0]._replace(grid=shapes[0].grid + 1), shapes[0]._replace(splits=3)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            _launch(src, fx, fy, out, geometry, bad)
 
 
 @pytest.mark.cuda
