@@ -1,0 +1,4 @@
+"""device_idle.pairs (%): the device's idle share of the traced window of a
+cell that reports pairs_per_s."""
+
+from portbench.harness.readers import device_idle_pct as read  # noqa: F401
