@@ -2450,13 +2450,8 @@ def _launch_counts() -> dict:
 
 def _zero_launch_counts() -> None:
     """Every kernel's wrapper count, and the graphs' counts, to 0."""
-    from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects
-    from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
-    from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
-    from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
     from hackathonopticalflow_tpu_torch.utils import graphs
 
-    lk_level.launches = warp_bilinear.launches = patch_bilinear.launches = gather_rects.launches = 0
     graphs.reset_stats()
 
 

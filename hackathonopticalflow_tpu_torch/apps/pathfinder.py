@@ -48,6 +48,7 @@ from ..io.video import HAVE_CV2, VideoReader
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.graphs import graphed
 from ..utils.logging import get_logger
+from ..utils.profiling import span
 from ..viz.draw import add_layers, put_text
 from ..viz.layers import _host, draw_grid, draw_grid_vectors, draw_sparse_lamps
 
@@ -187,17 +188,22 @@ class PathfinderApp:
         compute_s = 0.0
         # one-frame pipeline: frame t's flow is launched and frame t-1's
         # result consumed while the device works; the fetch of `good` is
-        # the only sync. Keyboard toggles act one frame late.
-        pending: tuple | None = None  # (frame_bgr, res, t_dispatch)
+        # the only sync. Keyboard toggles act one frame late. Spans are
+        # keyed by the absolute index of the pair's second frame.
+        pending: tuple | None = None  # (frame_bgr, res, t_dispatch, frame index)
         stop = False
+        shown = render or writer is not None or not headless
 
-        def consume(frame, res, t_disp):
+        def consume(frame, res, t_disp, key):
             nonlocal compute_s, stop
-            good = _host(res.good)  # sync point for this frame
-            compute_s += time.time() - t_disp
-            danger_counts.append(int(good.sum()))
-            if render or writer is not None or not headless:
+            with span("pathfinder.frame.fetch", key):
+                good = _host(res.good)  # sync point for this frame
+                compute_s += time.time() - t_disp
+                danger_counts.append(int(good.sum()))
+                if not shown:
+                    return
                 host = GridFlowResult(*(_host(a) for a in res))
+            with span("pathfinder.frame.present", key):
                 fps = len(danger_counts) / max(time.time() - t_start, 1e-9)
                 out = self.render_frame(frame, host, fps=fps)
                 if writer is not None:
@@ -217,14 +223,17 @@ class PathfinderApp:
             frame = reader.read()
             if frame is None:
                 break
-            gray = to_gray(frame)
+            key = cfg.start_frame + n + 1
+            with span("pathfinder.frame.gray", key):
+                gray = to_gray(frame)
             t0 = time.time()
-            res = self.compute_frame(prev_gray, gray)  # no sync
+            with span("pathfinder.frame.dispatch", key):
+                res = self.compute_frame(prev_gray, gray)  # no sync
             prev_gray = gray
             n += 1
             if pending is not None:
                 consume(*pending)
-            pending = (frame, res, t0)
+            pending = (frame, res, t0, key)
             if stop:
                 pending = None
                 break
@@ -298,25 +307,29 @@ class PathfinderApp:
         compute_s = 0.0
         t_start = time.time()
         # (buffer slot, ready event, bgr frames, valid pairs, last gray, abs
-        # index of the frame after the chunk's last pair, dispatch time)
+        # index of the frame after the chunk's last pair, dispatch time,
+        # chunk index: the key of the chunk's spans)
         pending = None
         n_chunks = 0
 
         def consume(p):
             nonlocal n, since_save, compute_s
-            slot, ready, bgrs, count, last_gray, abs_end, t_disp = p
+            slot, ready, bgrs, count, last_gray, abs_end, t_disp, key = p
             if ready is not None:
-                ready.synchronize()  # this chunk's result is in results_buf[slot]
+                with span("pathfinder.chunk.wait", key):
+                    ready.synchronize()  # this chunk's result is in results_buf[slot]
             compute_s += time.time() - t_disp
-            host = unpack_grid_result(results_buf[slot].numpy(), pts_i)
-            for i in range(count):
-                danger_counts.append(int(host.good[i].sum()))
-                n += 1
-                if writer is not None or render:
-                    one = GridFlowResult(*[a[i] for a in host])
-                    out = self.render_frame(bgrs[i], one, fps=n / max(time.time() - t_start, 1e-9))
-                    if writer is not None:
-                        writer.write(out)
+            with span("pathfinder.chunk.unpack", key):
+                host = unpack_grid_result(results_buf[slot].numpy(), pts_i)
+            with span("pathfinder.chunk.present", key):
+                for i in range(count):
+                    danger_counts.append(int(host.good[i].sum()))
+                    n += 1
+                    if writer is not None or render:
+                        one = GridFlowResult(*[a[i] for a in host])
+                        out = self.render_frame(bgrs[i], one, fps=n / max(time.time() - t_start, 1e-9))
+                        if writer is not None:
+                            writer.write(out)
             since_save += count
             if cfg.checkpoint_path and since_save >= cfg.checkpoint_every:
                 save_checkpoint(cfg.checkpoint_path, frame_idx=np.int64(abs_end),
@@ -330,20 +343,23 @@ class PathfinderApp:
                 return
             # the slot's previous chunk (two chunks back) was consumed before
             # the last dispatch returned, so its copies are done
+            key = n_chunks
             slot = n_chunks % 2
             n_chunks += 1
-            buf = frames_buf[slot].numpy()
-            for i, g in enumerate(grays):
-                buf[i] = g
-            buf[len(grays):] = grays[-1]  # pad the tail chunk
+            with span("pathfinder.chunk.fill", key):
+                buf = frames_buf[slot].numpy()
+                for i, g in enumerate(grays):
+                    buf[i] = g
+                buf[len(grays):] = grays[-1]  # pad the tail chunk
             t0 = time.time()
-            packed = self._chunk(frames_buf[slot], self._pts_dev)
-            results_buf[slot].copy_(packed, non_blocking=True)
-            ready = None
-            if cuda:
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(dev))
-            prev, pending = pending, (slot, ready, bgrs[1:], valid, grays[-1], abs_end, t0)
+            with span("pathfinder.chunk.dispatch", key):
+                packed = self._chunk(frames_buf[slot], self._pts_dev)
+                results_buf[slot].copy_(packed, non_blocking=True)
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(dev))
+            prev, pending = pending, (slot, ready, bgrs[1:], valid, grays[-1], abs_end, t0, key)
             if prev is not None:
                 consume(prev)
 

@@ -8,6 +8,7 @@ import torch
 from ..core import FarnebackParams
 from ..ops.farneback import COEF_MODES, farneback, farneback_prepared, prepare_frame, resolve_mode
 from ..utils.graphs import graphed
+from ..utils.profiling import span
 from .device import resolve_device
 
 
@@ -31,8 +32,10 @@ def farneback_flow_video(
         raise ValueError(f"farneback_flow_video runs the coefficient warp modes {COEF_MODES}, "
                          f"not {params.warp_mode!r}: call farneback_flow per pair")
     device = resolve_device(device)
-    frames = frames.to(device)
-    prev = prepare_frame(frames[0], params)
+    with span("dense.upload"):
+        frames = frames.to(device)
+    with span("dense.first_frame"):
+        prev = prepare_frame(frames[0], params)
     flows = []
     for t in range(1, frames.shape[0]):
         flow, prev = _video_step(prev, frames[t], params)

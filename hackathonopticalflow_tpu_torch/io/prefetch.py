@@ -7,7 +7,9 @@ decodes and converts each frame to gray into a bounded queue, so decode
 overlaps the device's work. The thread touches no CUDA state: it yields
 host uint8 arrays, and the consumer moves them to the device. An error in
 the reader or the gray conversion ends the thread and is raised in the
-consuming thread, after the frames before it.
+consuming thread, after the frames before it. The thread's read and
+gray conversion and the consumer's wait on the queue are spans
+(utils/profiling.py), keyed by the frame's absolute index.
 
 `batch_frames` decodes a run of frames into one device-resident (count,
 H, W) uint8 tensor with a single transfer (the shape the clip scans take).
@@ -26,6 +28,7 @@ from . import native_lib
 from ..flow.device import resolve_device
 from ..ops.color import bgr2gray
 from ..ops.image import resize_area
+from ..utils.profiling import span
 from .video import VideoReader
 
 
@@ -67,6 +70,7 @@ class FramePrefetcher:
         open_reader: Callable = VideoReader,
     ):
         self.reader = open_reader(path)
+        self.start_frame = start_frame
         if start_frame:
             self.reader.seek(start_frame)
         self.max_frames = max_frames
@@ -89,10 +93,13 @@ class FramePrefetcher:
         n = 0
         try:
             while self.max_frames is None or n < self.max_frames:
-                frame = self.reader.read()
+                key = self.start_frame + n
+                with span("prefetch.read", key):
+                    frame = self.reader.read()
                 if frame is None:
                     break
-                g = to_gray(frame)
+                with span("prefetch.gray", key):
+                    g = to_gray(frame)
                 if not self._put((frame, g) if self.keep_bgr else g):
                     return
                 n += 1
@@ -103,8 +110,11 @@ class FramePrefetcher:
             self._put(None)
 
     def __iter__(self):
+        key = self.start_frame
         while True:
-            item = self.q.get()
+            with span("prefetch.get", key):
+                item = self.q.get()
+            key += 1
             if item is None:
                 return
             if isinstance(item, Exception):

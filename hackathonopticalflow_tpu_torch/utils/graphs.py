@@ -54,6 +54,8 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from .profiling import span
+
 # per thread: how many graphed functions are warming up or capturing
 _tracing = threading.local()
 # every graphed function, for clear_caches() and launch_stats()
@@ -166,7 +168,8 @@ class Graphed:
         with torch.cuda.device(device):
             entry = self._entries.get(key)
             if entry is None:
-                entry = self._capture(leaves, spec, device)
+                with span("graph.capture", self.__qualname__):
+                    entry = self._capture(leaves, spec, device)
                 self._entries[key] = entry
             else:
                 for buf, x in zip(entry.static_in, leaves):
@@ -239,6 +242,8 @@ def reset_stats() -> None:
     `launches` counters with them."""
     _captured.clear()
     _replayed.clear()
+    for w in _kernel_wrappers():
+        w.launches = 0
 
 
 def launch_stats() -> dict:

@@ -237,3 +237,22 @@ def test_graphed_on_cpu_calls_the_function():
     assert torch.equal(g(x, 3), x * 3) and calls == [3]
     assert g._entries == {} and graphs.launch_stats() == {"captured": {}, "replayed": {}}
     graphs.clear_caches()
+
+
+def test_reset_stats_zeroes_the_kernel_wrappers_counts():
+    """reset_stats() zeroes the four kernel wrappers' `launches` counters
+    with the graphs' counts, as chip_smoke.py's counted runs need."""
+    wrappers = graphs._kernel_wrappers()
+    saved = [w.launches for w in wrappers]
+    try:
+        for i, w in enumerate(wrappers):
+            w.launches = i + 3
+        graphs._captured.update({"lk_level": 2})
+        graphs._replayed.update({"warp_bilinear": 5})
+        graphs.reset_stats()
+        assert [w.launches for w in wrappers] == [0, 0, 0, 0]
+        assert [w.__name__ for w in wrappers] == list(graphs.KERNELS)
+        assert graphs.launch_stats() == {"captured": {}, "replayed": {}}
+    finally:
+        for w, n in zip(wrappers, saved):
+            w.launches = n

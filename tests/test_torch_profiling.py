@@ -1,0 +1,186 @@
+"""The port's span recorder (utils/profiling.py) and the spans its host
+loops leave, on the CPU: nothing is recorded without a profiler; under
+one, spans from any thread are kept and device_trace writes them into its
+Chrome trace on the trace's clock; `run`, `run_batched` and
+`farneback_flow_video` leave one set of spans a frame or chunk."""
+
+import json
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from chip_smoke import ClipReader
+from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
+from hackathonopticalflow_tpu_torch.core import LKParams
+from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow_video
+from hackathonopticalflow_tpu_torch.utils import profiling
+from hackathonopticalflow_tpu_torch.utils.profiling import clear_spans, device_trace, span, spans
+
+torch.set_num_threads(1)
+
+
+def _cpu_profile():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _keys(found, name):
+    return [s.key for s in found if s.name == name]
+
+
+def _clip(n_frames: int) -> np.ndarray:
+    rng = np.random.default_rng(7)
+    return rng.integers(0, 256, (n_frames, 64, 96), dtype=np.uint8)
+
+
+def test_span_without_a_profiler_is_one_object_and_records_nothing():
+    clear_spans()
+    first = span("pathfinder.frame.gray", 1)
+    assert span("prefetch.get") is first and span("x", "y") is first
+    with span("dense.upload"):
+        pass
+    assert spans() == []
+
+
+def test_spans_of_two_threads_under_a_profiler():
+    clear_spans()
+    seen = {}
+
+    def work():
+        seen["tid"] = threading.get_native_id()
+        with span("prefetch.read", 5):
+            time.sleep(0.002)
+
+    with _cpu_profile():
+        with span("pathfinder.frame.fetch", 4):
+            time.sleep(0.002)
+        t = threading.Thread(target=work)
+        t.start()
+        t.join()
+    with span("after", 6):
+        pass
+    got = spans()
+    assert [(s.name, s.key) for s in got] == [("pathfinder.frame.fetch", 4), ("prefetch.read", 5)]
+    assert got[0].thread == threading.get_native_id() and got[1].thread == seen["tid"] != got[0].thread
+    assert got[0].start_ns < got[0].end_ns <= got[1].start_ns < got[1].end_ns
+    assert got[0].end_ns - got[0].start_ns >= 2_000_000
+    clear_spans()
+    assert spans() == []
+
+
+def test_device_trace_writes_the_spans_on_the_trace_clock(tmp_path):
+    clear_spans()
+    with device_trace(str(tmp_path)):
+        torch.ones(64).sum()
+        time.sleep(0.005)
+        with span("dense.upload"):
+            time.sleep(0.02)
+        time.sleep(0.005)
+        torch.zeros(64).sum()
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    mine = [e for e in events if e.get("cat") == "span"]
+    assert [(e["name"], e["ph"], e["args"]["key"], e["tid"]) for e in mine] == [
+        ("dense.upload", "X", None, threading.get_native_id())]
+    (anchor,) = [e for e in events if e.get("name") == profiling.ANCHOR]
+    before = next(e for e in events if e.get("name") == "aten::ones")
+    after = next(e for e in events if e.get("name") == "aten::zeros")
+    s = mine[0]
+    assert s["pid"] == anchor["pid"] and s["dur"] == pytest.approx(spans()[0].end_ns / 1e3
+                                                                    - spans()[0].start_ns / 1e3)
+    # the span lies between the ops around it, 5 ms from each, on the
+    # trace's clock
+    assert anchor["ts"] < before["ts"] < s["ts"] and s["ts"] + s["dur"] < after["ts"]
+    assert s["ts"] - before["ts"] > 4e3 and after["ts"] - (s["ts"] + s["dur"]) > 4e3
+
+
+def test_run_leaves_one_set_of_frame_spans_a_pair():
+    clear_spans()
+    gray = _clip(4)
+    app = PathfinderApp(PathfinderConfig(video="clip", lk=LKParams(grid_step=30, compute_err=False), device="cpu"),
+                        open_reader=lambda path: ClipReader(gray))
+    with _cpu_profile():
+        stats = app.run(headless=True, render=True)
+    got = spans()
+    assert stats["frames"] == 3
+    stages = ["pathfinder.frame.gray", "pathfinder.frame.dispatch", "pathfinder.frame.fetch",
+              "pathfinder.frame.present"]
+    assert sorted({s.name for s in got}) == sorted(stages)
+    for name in stages:
+        assert _keys(got, name) == [1, 2, 3], name
+    at = {(s.name, s.key): s for s in got}
+    for k in (1, 2, 3):
+        # the one-frame pipeline: frame k's fetch follows frame k + 1's dispatch
+        assert at["pathfinder.frame.gray", k].end_ns <= at["pathfinder.frame.dispatch", k].start_ns
+        assert at["pathfinder.frame.dispatch", k].end_ns <= at["pathfinder.frame.fetch", k].start_ns
+        assert at["pathfinder.frame.fetch", k].end_ns <= at["pathfinder.frame.present", k].start_ns
+        if k < 3:
+            assert at["pathfinder.frame.dispatch", k + 1].end_ns <= at["pathfinder.frame.fetch", k].start_ns
+
+
+def test_run_batched_leaves_chunk_and_prefetch_spans():
+    clear_spans()
+    gray = _clip(6)
+    app = PathfinderApp(PathfinderConfig(video="clip", lk=LKParams(grid_step=30, compute_err=False), device="cpu"),
+                        open_reader=lambda path: ClipReader(gray))
+    with _cpu_profile():
+        stats = app.run_batched(chunk=2, render=True)
+    got = spans()
+    assert stats["frames"] == 5
+    # three chunks of 2, 2 and 1 pairs; no event to wait on on the CPU
+    for name in ("pathfinder.chunk.fill", "pathfinder.chunk.dispatch", "pathfinder.chunk.unpack",
+                 "pathfinder.chunk.present"):
+        assert _keys(got, name) == [0, 1, 2], name
+    # frames 0-5 read and converted, and the read that finds the end;
+    # the consumer takes the six frames and the end marker
+    assert _keys(got, "prefetch.read") == list(range(7))
+    assert _keys(got, "prefetch.gray") == list(range(6))
+    assert sorted(_keys(got, "prefetch.get")) == list(range(7))
+    assert {s.name for s in got} == {"pathfinder.chunk.fill", "pathfinder.chunk.dispatch", "pathfinder.chunk.unpack",
+                                     "pathfinder.chunk.present", "prefetch.read", "prefetch.gray", "prefetch.get"}
+    main = threading.get_native_id()
+    assert all((s.thread != main) == (s.name in ("prefetch.read", "prefetch.gray")) for s in got)
+    at = {(s.name, s.key): s for s in got}
+    for k in range(6):
+        assert at["prefetch.gray", k].end_ns <= at["prefetch.get", k].end_ns
+
+
+def test_farneback_flow_video_leaves_its_preparation_spans():
+    clear_spans()
+    frames = torch.from_numpy(_clip(3)[:, :32, :48].copy())
+    with _cpu_profile():
+        flows = farneback_flow_video(frames, device="cpu")
+    got = spans()
+    assert flows.shape == (2, 32, 48, 2)
+    assert [(s.name, s.key) for s in got] == [("dense.upload", None), ("dense.first_frame", None)]
+    assert got[0].end_ns <= got[1].start_ns
+
+
+def test_spans_from_many_threads_are_all_kept():
+    """More threads than cores record at once, with the interpreter
+    switching threads as often as it can: no span is lost."""
+    clear_spans()
+    n_threads, each = 2 * (os.cpu_count() or 1) + 2, 300
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(t):
+            for i in range(each):
+                with span("prefetch.read", t * each + i):
+                    pass
+
+        with _cpu_profile():
+            threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert sorted(s.key for s in spans()) == list(range(n_threads * each))
