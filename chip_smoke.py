@@ -506,6 +506,7 @@ GRAPH_MODULES = (
     "hackathonopticalflow_tpu_torch.flow.dense",
     "hackathonopticalflow_tpu_torch.flow.tracker",
     "hackathonopticalflow_tpu_torch.apps.batch_runner",
+    "hackathonopticalflow_tpu_torch.apps.pathfinder",
 )
 
 
@@ -2339,11 +2340,16 @@ def graph_phase(dev, clip, dense_clip) -> dict:
     def pair_loop(fn, n):
         return lambda: [fn(t) for t in range(1, n + 1)]
 
+    def pf_run():
+        pf.reader.seek(0)  # run reads the app's own reader
+        return pf.run(headless=True, render=False)["danger_counts"]
+
     paths = {
         "sparse scan": (pairs, lambda: lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev), ()),
         "pathfinder run_batched": (pairs, lambda: pf.run_batched(chunk=APP_CHUNK)["danger_counts"], (pf,)),
         "pathfinder compute_frame": (pairs, pair_loop(lambda t: pf.compute_frame(frames[t - 1], frames[t]), pairs),
                                      ()),
+        "pathfinder run": (pairs, pf_run, ()),
         "batch runner (4 streams)": (max(BATCH_LENGTHS) - 1, lambda: run_batch(batch_cfg)["danger_counts"], ()),
         **{f"dense scan {mode}": (dense_pairs, lambda mode=mode: dense.farneback_flow_video(
             dense_clip, FarnebackParams(warp_mode=mode), device=dev), ())

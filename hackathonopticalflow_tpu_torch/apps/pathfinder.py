@@ -14,14 +14,16 @@ compositing, FPS overlay. Supports:
 - start_frame seek, and checkpoint/resume at chunk boundaries.
 
 The device work is launched without host syncs (the grid path's index
-tensors are cached per clip), so it overlaps the host's: `run` consumes
-frame t-1's result while frame t's runs, and `run_batched` fetches chunk
-i's result while chunk i+1 decodes and runs. Frames and results cross
-through pinned host memory with non-blocking copies. Frames come from
-`open_reader(video)`: cv2's `VideoReader` by default, or any reader with
-height, width, fps, seek(i) and read() (io/prefetch.py). cv2 is needed
-only to decode a video file, to write an mp4 and for interactive mode;
-headless rendering falls back to viz/draw.py's numpy rasterizer.
+tensors are cached per clip). `run` serves latency: it reads frame t's
+result as one packed copy, right behind its own graph, and presents it
+before it waits for frame t+1. `run_batched` serves throughput: it
+fetches chunk i's result while chunk i+1 decodes and runs. Frames and
+results cross through pinned host memory with non-blocking copies.
+Frames come from `open_reader(video)`: cv2's `VideoReader` by default,
+or any reader with height, width, fps, seek(i) and read()
+(io/prefetch.py). cv2 is needed only to decode a video file, to write an
+mp4 and for interactive mode; headless rendering falls back to
+viz/draw.py's numpy rasterizer.
 """
 
 from __future__ import annotations
@@ -79,6 +81,13 @@ class PathfinderConfig:
     checkpoint_every: int = 96
     #: where the flow runs: the GPU unless "cpu" is asked for
     device: str = "cuda"
+
+
+@graphed
+def _pair_packed(prev_gray, gray, pts, lk, norm, filt) -> torch.Tensor:
+    """One pair's flow (`PathfinderApp.compute_frame`'s) packed into one
+    (10 N,) tensor: `run`'s device work, one captured graph on the GPU."""
+    return pack_grid_result(lk_grid_flow(prev_gray, gray, pts, lk, norm, filt, device=pts.device))
 
 
 def _need_cv2(what: str) -> None:
@@ -167,9 +176,20 @@ class PathfinderApp:
         return cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"), r.fps or 25.0, (r.width, r.height))
 
     def run(self, headless: bool = True, out_path: str | None = None, render: bool = True) -> dict:
-        """Process the video one frame pair at a time; returns run metrics.
-        headless=False opens the interactive cv2 window with the
-        reference's keyboard map."""
+        """Process the video one frame pair at a time, latency first;
+        returns run metrics. headless=False opens the interactive cv2 window
+        with the reference's keyboard map.
+
+        Per frame: gray conversion; the pair's flow and pack as one graph
+        (`_pair_packed`), its result copied into one pinned buffer right
+        behind it and an event recorded; a wait on that event, the
+        launching thread's only sync of the frame; the unpack and the
+        present; only then the read of the next frame. So a frame's result
+        never waits for the next camera frame, and keyboard toggles act on
+        the next frame. The device idles while the host reads and converts
+        a frame: to render a file, where no frame waits on a camera,
+        `run_batched` is the faster path. `render_frame` gets numpy arrays,
+        some of them views of the pinned buffer, valid until it returns."""
         cfg = self.cfg
         if not headless:
             _need_cv2("interactive mode")
@@ -181,44 +201,20 @@ class PathfinderApp:
             raise IOError("no first frame")
         prev_gray = to_gray(prev)
         writer = self._writer(out_path)
+        dev = self.device
+        cuda = dev.type == "cuda"
+        # one pinned buffer: frame t is presented before frame t+1 is
+        # dispatched, so nothing in flight writes it
+        result = torch.empty(10 * self.pts.shape[0], dtype=torch.float32, pin_memory=cuda)
+        ready = torch.cuda.Event() if cuda else None
+        pts_i = np.trunc(self.pts + 0.5).astype(np.int32)
 
         n = 0
         danger_counts = []
         t_start = time.time()
         compute_s = 0.0
-        # one-frame pipeline: frame t's flow is launched and frame t-1's
-        # result consumed while the device works; the fetch of `good` is
-        # the only sync. Keyboard toggles act one frame late. Spans are
-        # keyed by the absolute index of the pair's second frame.
-        pending: tuple | None = None  # (frame_bgr, res, t_dispatch, frame index)
-        stop = False
         shown = render or writer is not None or not headless
-
-        def consume(frame, res, t_disp, key):
-            nonlocal compute_s, stop
-            with span("pathfinder.frame.fetch", key):
-                good = _host(res.good)  # sync point for this frame
-                compute_s += time.time() - t_disp
-                danger_counts.append(int(good.sum()))
-                if not shown:
-                    return
-                host = GridFlowResult(*(_host(a) for a in res))
-            with span("pathfinder.frame.present", key):
-                fps = len(danger_counts) / max(time.time() - t_start, 1e-9)
-                out = self.render_frame(frame, host, fps=fps)
-                if writer is not None:
-                    writer.write(out)
-                if not headless:
-                    import cv2
-
-                    if cfg.show_lamps:
-                        flow_good = (host.next_pts - host.pts)[good]
-                        cv2.imshow("lamps", draw_sparse_lamps((reader.height, reader.width), flow_good,
-                                                              host.pts[good]))
-                    cv2.imshow("flow", out)
-                    if not self._handle_key(cv2.waitKey(1) & 0xFF):
-                        stop = True
-
+        # spans are keyed by the absolute index of the pair's second frame
         while cfg.max_frames is None or n < cfg.max_frames:
             frame = reader.read()
             if frame is None:
@@ -228,17 +224,36 @@ class PathfinderApp:
                 gray = to_gray(frame)
             t0 = time.time()
             with span("pathfinder.frame.dispatch", key):
-                res = self.compute_frame(prev_gray, gray)  # no sync
+                packed = _pair_packed(upload(prev_gray, dev), upload(gray, dev), self._pts_dev, cfg.lk, cfg.norm,
+                                      cfg.filt)
+                result.copy_(packed, non_blocking=True)
+                if ready is not None:
+                    ready.record(torch.cuda.current_stream(dev))
             prev_gray = gray
             n += 1
-            if pending is not None:
-                consume(*pending)
-            pending = (frame, res, t0, key)
-            if stop:
-                pending = None
-                break
-        if pending is not None:
-            consume(*pending)
+            with span("pathfinder.frame.fetch", key):
+                if ready is not None:
+                    ready.synchronize()  # the frame's only sync
+                host = unpack_grid_result(result.numpy(), pts_i)
+                compute_s += time.time() - t0
+                danger_counts.append(int(host.good.sum()))
+            if not shown:
+                continue
+            with span("pathfinder.frame.present", key):
+                fps = len(danger_counts) / max(time.time() - t_start, 1e-9)
+                out = self.render_frame(frame, host, fps=fps)
+                if writer is not None:
+                    writer.write(out)
+                if not headless:
+                    import cv2
+
+                    if cfg.show_lamps:
+                        flow_good = (host.next_pts - host.pts)[host.good]
+                        cv2.imshow("lamps", draw_sparse_lamps((reader.height, reader.width), flow_good,
+                                                              host.pts[host.good]))
+                    cv2.imshow("flow", out)
+                    if not self._handle_key(cv2.waitKey(1) & 0xFF):
+                        break
         if writer is not None:
             writer.release()
         return self._stats(danger_counts, time.time() - t_start, compute_s, cfg.start_frame + 1)

@@ -7,6 +7,8 @@ exact path) in both and the port on the CPU:
 - the port's `run`, `run_batched(chunk=3)` and `lk_grid_flow_video`'s
   `good` sums agree exactly, and so does a checkpointed run of 6 pairs
   plus its resume;
+- `run` presents each frame before it reads the next, and the arrays it
+  renders equal `compute_frame`'s;
 - headless rendering without cv2, and the errors where cv2 or CUDA is
   missing.
 """
@@ -116,6 +118,40 @@ def test_checkpoint_resume(clip, port_batched, tmp_path):
         chunk=CHUNK)
     assert part2["first_pair_frame"] == 7 and part2["frames"] == 6
     assert part1["danger_counts"] + part2["danger_counts"] == port_batched["danger_counts"]
+
+
+def test_run_presents_each_frame_before_it_reads_the_next(clip, port_batched):
+    """`run` reads frame k + 1 only after frame k is rendered; the arrays it
+    renders equal `compute_frame`'s on the same pair, in dtype and value,
+    and its counts equal `run_batched`'s."""
+    reader = tpf.VideoReader(clip)
+    grays = np.stack([cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) for f in reader.frames(count=PAIRS + 1)])
+    log = []
+
+    class LoggedReader(ClipReader):
+        def read(self):
+            log.append(("read", self.pos))
+            return super().read()
+
+    class LoggedApp(tpf.PathfinderApp):
+        def render_frame(self, img, res, fps=None):
+            log.append(("render", len(self.rendered) + 1))
+            self.rendered.append({f: np.array(getattr(res, f)) for f in res._fields})
+            return img
+
+    app = LoggedApp(_cfg("clip", max_frames=PAIRS), open_reader=lambda path: LoggedReader(grays))
+    app.rendered = []
+    stats = app.run(headless=True, render=True)
+    assert stats["frames"] == len(app.rendered) == PAIRS
+    assert stats["danger_counts"] == port_batched["danger_counts"]
+    # frame 0 opens the first pair; frame k is read, then pair k rendered
+    assert log == [("read", 0)] + [e for k in range(1, PAIRS + 1) for e in (("read", k), ("render", k))]
+    for k, got in enumerate(app.rendered, start=1):
+        want = app.compute_frame(grays[k - 1], grays[k])
+        assert got["pts"].dtype == np.int32
+        for f in want._fields:
+            w = want._asdict()[f].numpy()
+            assert got[f].dtype == w.dtype and np.array_equal(got[f], w), (k, f)
 
 
 @pytest.mark.parametrize("have_cv2", [True, False])

@@ -8,6 +8,7 @@ conftest:
 """
 
 import dataclasses
+import gc
 import importlib
 from unittest import mock
 
@@ -584,6 +585,9 @@ def test_graphed_step_replays_its_eager_form(cuda_device, step):
     owner = getattr(fn.__wrapped__, "__self__", None)  # the app whose chunk it is
     with eager(*([] if owner is None else [owner])):
         want = fn.__wrapped__(*args)
+    # an earlier step's app is cyclic garbage that holds a graph: freed by
+    # the collector during this capture, it would invalidate the capture
+    gc.collect()
     first = fn(*args)
     with strict_replays():
         second = fn(*args)

@@ -18,6 +18,10 @@ before = blocked_mods()
 for name in BLOCKED:
     sys.modules[name] = None  # any import of it now raises ImportError
 import torch
+# one thread, as the other test files: beside other busy processes a full
+# pool oversubscribes the cores (six probes at once on 8 cores: 517 s with
+# the default pool, 8 s with one thread)
+torch.set_num_threads(1)
 import hackathonopticalflow_tpu_torch as pkg
 names = set()
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):

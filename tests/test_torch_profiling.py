@@ -115,12 +115,12 @@ def test_run_leaves_one_set_of_frame_spans_a_pair():
         assert _keys(got, name) == [1, 2, 3], name
     at = {(s.name, s.key): s for s in got}
     for k in (1, 2, 3):
-        # the one-frame pipeline: frame k's fetch follows frame k + 1's dispatch
+        # latency first: frame k is presented before frame k + 1 is converted
         assert at["pathfinder.frame.gray", k].end_ns <= at["pathfinder.frame.dispatch", k].start_ns
         assert at["pathfinder.frame.dispatch", k].end_ns <= at["pathfinder.frame.fetch", k].start_ns
         assert at["pathfinder.frame.fetch", k].end_ns <= at["pathfinder.frame.present", k].start_ns
         if k < 3:
-            assert at["pathfinder.frame.dispatch", k + 1].end_ns <= at["pathfinder.frame.fetch", k].start_ns
+            assert at["pathfinder.frame.present", k].end_ns <= at["pathfinder.frame.gray", k + 1].start_ns
 
 
 def test_run_batched_leaves_chunk_and_prefetch_spans():

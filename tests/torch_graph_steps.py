@@ -14,6 +14,7 @@ import torch
 
 from chip_smoke import ClipReader
 from hackathonopticalflow_tpu_torch.apps import batch_runner as tbr
+from hackathonopticalflow_tpu_torch.apps import pathfinder as tpf
 from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
 from hackathonopticalflow_tpu_torch.core import (
     FarnebackParams,
@@ -74,6 +75,13 @@ def chunk(device):
     return app._chunk, (torch.from_numpy(clip), app._pts_dev)
 
 
+def pathfinder_pair(device):
+    """The pathfinder app's pair as `run` dispatches it: the flow and its
+    pack."""
+    f = torch.from_numpy(frames(2)).to(device)
+    return tpf._pair_packed, (f[0], f[1], grid(device), SPARSE, NormalizeParams(), FilterParams())
+
+
 def batch_step(device):
     f = torch.from_numpy(np.stack([frames(2, seed=s) for s in (0, 1)], 1)).to(device)  # (2, B, H, W)
     return tbr._batch_step, (tlk.prepare_frame(f[0], SPARSE).img_p, f[1], grid(device), SPARSE,
@@ -114,6 +122,7 @@ STEPS = {
     "sparse step": sparse_step,
     "sparse pair": sparse_pair,
     "pathfinder chunk": chunk,
+    "pathfinder pair": pathfinder_pair,
     "batch step B=2": batch_step,
     **{f"dense step {m}": (lambda device, m=m: dense_step(device, m)) for m in tfb.COEF_MODES},
     **{f"dense pair {m}": (lambda device, m=m: dense_pair(device, m)) for m in ("exact", "image", "hybrid")},
