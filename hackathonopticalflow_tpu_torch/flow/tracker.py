@@ -26,6 +26,7 @@ from ..core import TrackerParams
 from ..ops.features import Corners, good_features_to_track
 from ..ops.lk import PreparedFrame, prepare_frame, pyr_lk_prepared
 from ..utils.graphs import graphed
+from ..utils.profiling import span
 from .device import resolve_device
 
 
@@ -213,14 +214,24 @@ def track_video(
     carried to the next step. Seed detections by stepping (f0, f0) first,
     as the JAX package's callers do. Returns the final state and per-step
     history (heads (F-1, T, 2), alive (F-1, T), length (F-1, T)).
-    Everything moves to `device` (the GPU unless device="cpu")."""
+    Everything moves to `device` (the GPU unless device="cpu").
+
+    Under a torch.profiler it records the spans `tracker.upload` (the
+    frames' copy to the device), `tracker.first_frame` (frames[0]'s eager
+    pyramid) and, a step each, `tracker.step.detect` or
+    `tracker.step.track` keyed by the state's frame index before the
+    step (utils/profiling.py::span)."""
     device = resolve_device(device)
-    frames = frames.to(device)
+    with span("tracker.upload"):
+        frames = frames.to(device)
     state = init_tracker(params, device) if state is None else _to(state, device)
-    prev_prep = prepare_frame(frames[0].to(torch.float32), params.lk)
+    with span("tracker.first_frame"):
+        prev_prep = prepare_frame(frames[0].to(torch.float32), params.lk)
     heads, alive, length = [], [], []
     for t in range(1, frames.shape[0]):
-        state, prev_prep, h = track_frame(state, prev_prep, frames[t], params)
+        detect = state.frame_idx % params.detect_interval == 0
+        with span("tracker.step.detect" if detect else "tracker.step.track", state.frame_idx):
+            state, prev_prep, h = track_frame(state, prev_prep, frames[t], params)
         heads.append(h)
         alive.append(state.alive)
         length.append(state.length)

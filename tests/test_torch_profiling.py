@@ -2,7 +2,8 @@
 loops leave, on the CPU: nothing is recorded without a profiler; under
 one, spans from any thread are kept and device_trace writes them into its
 Chrome trace on the trace's clock; `run`, `run_batched` and
-`farneback_flow_video` leave one set of spans a frame or chunk."""
+`farneback_flow_video` leave one set of spans a frame or chunk, and
+`track_video` one a step around its preparation spans."""
 
 import json
 import os
@@ -17,8 +18,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import ClipReader
 from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
-from hackathonopticalflow_tpu_torch.core import LKParams
+from hackathonopticalflow_tpu_torch.core import FeatureParams, LKParams, TrackerParams
 from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow_video
+from hackathonopticalflow_tpu_torch.flow.tracker import track_video
 from hackathonopticalflow_tpu_torch.utils import profiling
 from hackathonopticalflow_tpu_torch.utils.profiling import clear_spans, device_trace, span, spans
 
@@ -159,6 +161,52 @@ def test_farneback_flow_video_leaves_its_preparation_spans():
     assert flows.shape == (2, 32, 48, 2)
     assert [(s.name, s.key) for s in got] == [("dense.upload", None), ("dense.first_frame", None)]
     assert got[0].end_ns <= got[1].start_ns
+
+
+def _tracker_frames(n_frames: int) -> torch.Tensor:
+    """A smooth texture drifting by (+1, +1) px a frame, u8."""
+    rng = np.random.default_rng(11)
+    lat = rng.uniform(10, 245, (12, 14))
+    big = np.kron(lat, np.ones((8, 8)))
+    for _ in range(3):
+        big = 0.25 * (np.roll(big, 1, 0) + np.roll(big, -1, 0) + np.roll(big, 1, 1) + np.roll(big, -1, 1))
+    frames = np.stack([big[t : t + 48, t : t + 64] for t in range(n_frames)])
+    return torch.from_numpy(np.floor(frames + 0.5).astype(np.uint8))
+
+
+TRACKER = TrackerParams(max_tracks=32, features=FeatureParams(max_candidates=64))
+
+
+def test_track_video_records_its_spans_only_under_a_profiler():
+    frames = _tracker_frames(8)
+    clear_spans()
+    plain_state, plain = track_video(frames, TRACKER, device="cpu")
+    assert spans() == []
+    with _cpu_profile():
+        state, traced = track_video(frames, TRACKER, device="cpu")
+    got = spans()
+    assert [(s.name, s.key) for s in got[:2]] == [("tracker.upload", None), ("tracker.first_frame", None)]
+    # one span a pair, keyed by the frame index before the step; detection
+    # at frame indices 0 and 5 (detect_interval 5)
+    assert [(s.name, s.key) for s in got[2:]] == [
+        ("tracker.step.detect" if k % 5 == 0 else "tracker.step.track", k) for k in range(7)]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(got, got[1:]))
+    # the history is the same with the profiler and without it
+    for a, b in zip(traced, plain):
+        assert torch.equal(a, b)
+    for a, b in zip(state[:3], plain_state[:3]):
+        assert torch.equal(a, b)
+    assert int(plain[1][-1].sum()) > 0
+
+
+def test_track_video_keys_its_steps_by_the_carried_frame_index():
+    frames = _tracker_frames(6)
+    first, _ = track_video(frames[:3], TRACKER, device="cpu")
+    clear_spans()
+    with _cpu_profile():
+        track_video(frames[2:], TRACKER, state=first, device="cpu")
+    # the state arrives at frame index 2: steps 2, 3 and 4, none detecting
+    assert [(s.name, s.key) for s in spans()[2:]] == [("tracker.step.track", k) for k in (2, 3, 4)]
 
 
 def test_spans_from_many_threads_are_all_kept():
