@@ -16,17 +16,24 @@ toolkit (nvcc under $CUDA_HOME or /usr/local/cuda):
 Phases, in order; any failure exits non-zero:
 1. device check: a CUDA device is required, there is no CPU path;
 2. kernel build: csrc/lk_level.cu, csrc/warp_bilinear.cu,
-   csrc/patch_bilinear.cu and csrc/gather_rects.cu -> build/torch_kernels/
-   (one nvcc each, started together, sm_90a); for each instantiation of
-   lk_level and patch_bilinear, its registers per thread (checked against
+   csrc/patch_bilinear.cu, csrc/gather_rects.cu and csrc/grid_templates.cu
+   -> build/torch_kernels/ (one nvcc each, started together, sm_90a); for
+   each instantiation of lk_level, patch_bilinear and grid_templates, its
+   registers per thread (checked against
    the ptxas report beside the library) and resident blocks and warps per
    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 3. lk_level kernel vs its plain PyTorch version at L2, L1 and L0 of the
    production params on one 1080p pair: status and top-lefts identical
    (both sum exactly, so any difference is a fault), the kernel launched
    at every level, and its device time per level (graph replay);
+3b. grid_templates kernel vs its plain version at L2, L1 and L0 of the
+   production params (2304 points, window 45) on one 1080p frame, on two
+   streams and on the planes of one stack: identical; per level its device
+   time and the plain version's (graph replay) beside its bound (planes
+   and templates) and the templates' bound alone;
 4. sparse main path: lk_grid_flow_video over a 49-frame 1080p clip (48
-   pairs) and lk_grid_flow over one pair; finite fields, median endpoint
+   pairs) and lk_grid_flow over one pair (grid_templates 3 times a pair);
+   finite fields, median endpoint
    error against the known flow < 0.1 px on status-true points, >= 95%
    status true, `good` agreeing with the plain path on >= 99% of points;
 5. sparse times: steady-state fps of the 48-pair scan through the kernel
@@ -187,7 +194,7 @@ patched in.
 
 Each kernel's record carries its device time per shape of the main paths
 (shape_ms, graph replay; with shape_bound_ms and, for patch_bilinear,
-shape_library_ms) and, for lk_level and patch_bilinear, the registers and
+shape_library_ms) and, for lk_level, patch_bilinear and grid_templates, the registers and
 occupancy of each instantiation (variants), and its bound: the least time
 an H100 could take for the same work, the larger of the bytes it must move
 (each input read once, each output written once, at HBM_BYTES_PER_S) and
@@ -610,6 +617,7 @@ def sparse_phases(dev, clip) -> dict:
     from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
     from hackathonopticalflow_tpu_torch.flow import lk_grid
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates_reference
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 
     params = LKParams(grid_step=30, compute_err=False)
@@ -662,9 +670,13 @@ def sparse_phases(dev, clip) -> dict:
     log(f"sparse main path: lk_level launches {main_launches} (warm-ups and captures), executions "
         f"{cnt.ran['lk_level']} of which graph replays {cnt.replayed.get('lk_level', 0)} ({3 * N_FRAMES} "
         f"expected: 3 a pair, the scan's 48 and the pair's one), warp_bilinear launches "
-        f"{cnt.launched['warp_bilinear']}, patch_bilinear launches {cnt.launched['patch_bilinear']}")
+        f"{cnt.launched['warp_bilinear']}, patch_bilinear launches {cnt.launched['patch_bilinear']}, "
+        f"grid_templates executions by graph replays {cnt.replayed.get('grid_templates', 0)} "
+        f"({3 * N_FRAMES} expected)")
     if main_launches < 3 or cnt.replayed.get("lk_level", 0) != 3 * N_FRAMES:
         raise SystemExit("the sparse main path did not run the lk_level kernel at every level")
+    if cnt.replayed.get("grid_templates", 0) != 3 * N_FRAMES:
+        raise SystemExit("the sparse main path did not cut its templates with the grid_templates kernel")
     for name, v in res._asdict().items():
         if v.is_floating_point() and not bool(torch.isfinite(v).all()):
             raise SystemExit(f"non-finite values in {name}")
@@ -682,7 +694,8 @@ def sparse_phases(dev, clip) -> dict:
         if not torch.equal(getattr(one, name), getattr(res, name)[0]):
             raise SystemExit(f"lk_grid_flow disagrees with the scan's first step on {name}")
 
-    with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference):
+    with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+            mock.patch.object(lk_mod, "grid_templates", grid_templates_reference):
         plain = lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
     good_agree = float((plain.good == res.good[:PLAIN_PAIRS]).double().mean())
     raw_diff = float((plain.raw_next_pts - res.raw_next_pts[:PLAIN_PAIRS]).abs().max())
@@ -694,7 +707,8 @@ def sparse_phases(dev, clip) -> dict:
     # ---- 5. times ----
     scan_s = min(host_seconds(lambda: lk_grid.lk_grid_flow_video(clip, pts, lk=params, device=dev))
                  for _ in range(3))
-    with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference):
+    with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+            mock.patch.object(lk_mod, "grid_templates", grid_templates_reference):
         lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
         plain_s = min(
             host_seconds(
@@ -733,9 +747,82 @@ def sparse_phases(dev, clip) -> dict:
             "shape_ms": {f"production L{lv}": v for lv, v in level_ms.items()},
             "shape_bound_ms": {f"production L{lv}": v for lv, v in level_bound_ms.items()},
         },
+        "grid_templates_runs": cnt,
         "scan_fps": fps,
         "plain_scan_fps": plain_fps,
         "median_epe_px": med_epe,
+    }
+
+
+GRID_TEMPLATE_STREAMS = 2  # phase 3b's stream axis
+
+
+def grid_templates_phase(dev, clip) -> dict:
+    """Phase 3b: the grid template kernel against its plain version at the
+    pathfinder's three levels (2304 points, window 45) on the zoom clip's
+    frame 1, with B = 1, with a stream axis of GRID_TEMPLATE_STREAMS (frames
+    1 and 2) and on the planes of one (B, 3, Hp, Wp) stack: identical; per
+    level the device time (graph replay), kernel / plain, beside two bounds:
+    every byte (the three planes read once, the templates written once) and
+    the templates alone, as the benchmark's grid_templates.roofline counts
+    them (the planes are written just before and may be in L2)."""
+    from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid
+    from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates, grid_templates_reference
+
+    params = LKParams(grid_step=30, compute_err=False)
+    win_w, win_h = params.win_size
+    pad = lk_mod._frame_pad(params)
+    pts_np = measurement_grid(H, W, params.grid_step)
+    xs, ys = lk_mod._grid_axes(H, W, params.grid_step)
+    one = lk_mod.prepare_frame(clip[1], params)
+    many = lk_mod.prepare_frame(clip[1 : 1 + GRID_TEMPLATE_STREAMS], params)
+    out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "out_bound_ms": 0.0,
+           "shape_ms": {}, "shape_plain_ms": {}, "shape_bound_ms": {}, "shape_out_bound_ms": {}}
+    for level in range(params.max_level, -1, -1):
+        calls = {
+            f"L{level}": [p[level] for p in one],
+            f"L{level} B={GRID_TEMPLATE_STREAMS}": [p[level] for p in many],
+            f"L{level} B={GRID_TEMPLATE_STREAMS} stack": list(torch.stack([p[level] for p in many], 1).unbind(1)),
+        }
+        for key, planes in calls.items():
+            grid_templates.launches = 0
+            got = grid_templates(*planes, xs, ys, level, win_w, win_h, pad)
+            torch.cuda.synchronize()
+            launches = grid_templates.launches
+            want = grid_templates_reference(*planes, xs, ys, level, win_w, win_h, pad)
+            nb = planes[0].shape[0] if planes[0].dim() == 3 else 1
+            if launches != 1 or got.shape != (nb * pts_np.shape[0], 3, win_h, win_w) or not torch.equal(got, want):
+                raise SystemExit(f"grid_templates {key}: kernel disagrees with the plain version")
+            if key.endswith("stack"):
+                log(f"grid_templates {key} {tuple(got.shape)}: identical")
+                continue
+            k_ms = graph_ms(lambda: grid_templates(*planes, xs, ys, level, win_w, win_h, pad), 20)
+            p_ms = graph_ms(lambda: grid_templates_reference(*planes, xs, ys, level, win_w, win_h, pad), 3)
+            out_bytes = got.numel() * 4
+            all_bound, by = bound(3 * planes[0].numel() * 4 + out_bytes, 11.0 * got.numel())
+            out_bound, _ = bound(out_bytes)
+            out["shape_ms"][key], out["shape_plain_ms"][key] = k_ms, p_ms
+            out["shape_bound_ms"][key], out["shape_out_bound_ms"][key] = all_bound, out_bound
+            if nb == 1:
+                out["ms"] += k_ms
+                out["plain_ms"] += p_ms
+                out["bound_ms"] += all_bound
+                out["out_bound_ms"] += out_bound
+            log(f"grid_templates {key} {tuple(got.shape)}: identical, device time (graph replay) {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bound {all_bound:.4f} ms ({by}: planes and templates), templates alone "
+                f"{out_bound:.4f} ms ({100.0 * out_bound / k_ms:.1f}% of it)")
+    log(f"grid_templates over the 3 levels (device ms, kernel / plain / bound / templates' bound): "
+        f"{out['ms']:.4f} / {out['plain_ms']:.4f} / {out['bound_ms']:.4f} / {out['out_bound_ms']:.4f}")
+    return {
+        "name": "grid_templates",
+        "route": "cuda",
+        "source": "hackathonopticalflow_tpu_torch/csrc/grid_templates.cu",
+        "replaces": "none: hackathonopticalflow_tpu/ops/grid_patch.py::extract_grid_templates_lanes (XLA)",
+        "launches_by_path": {},
+        "executions_by_path": {},
+        "library_ms": None,
+        **out,
     }
 
 
@@ -1355,6 +1442,7 @@ def gather_rects_phase(dev, clip) -> dict:
     gather."""
     from hackathonopticalflow_tpu_torch.core import measurement_grid
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+    from hackathonopticalflow_tpu_torch.ops import grid_templates as grid_mod
     from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
     from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import slice_start
@@ -1370,8 +1458,8 @@ def gather_rects_phase(dev, clip) -> dict:
     rng = np.random.RandomState(SEED)
     calls = {}
     for level in range(params.max_level, -1, -1):
-        bx, _ = patch_mod._axis_bases(xs, level, (win_w - 1) * 0.5 + mx)
-        by, _ = patch_mod._axis_bases(ys, level, (win_h - 1) * 0.5 + my)
+        bx, _ = grid_mod._axis_bases(xs, level, (win_w - 1) * 0.5 + mx)
+        by, _ = grid_mod._axis_bases(ys, level, (win_h - 1) * 0.5 + my)
         org = np.stack(np.meshgrid(bx, by, indexing="ij"), -1).reshape(-1, 2) + pad
         hp, wp = prep.img_p[level].shape
         org[-32:] = np.stack([rng.randint(-300, wp + 300, 32), rng.randint(-300, hp + 300, 32)], -1)
@@ -1437,6 +1525,7 @@ def new_scan_phases(dev, clip) -> dict:
     from hackathonopticalflow_tpu_torch.flow import lk_grid
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
     from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
+    from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates_reference
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level_reference
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear_reference
 
@@ -1465,6 +1554,7 @@ def new_scan_phases(dev, clip) -> dict:
         med_epe = float(epe[st].median())
         st_frac = float(st.double().mean())
         with eager(), mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+                mock.patch.object(lk_mod, "grid_templates", grid_templates_reference), \
                 mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
             plain = lk_grid.lk_grid_flow_video(clip[: PLAIN_PAIRS + 1], pts, lk=params, device=dev)
         good_agree = float((plain.good == res.good[:PLAIN_PAIRS]).double().mean())
@@ -2436,12 +2526,14 @@ def _wrapper_counts() -> dict:
     """The kernels' wrapper counts (eager launches, and launches recorded
     into a graph)."""
     from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects
+    from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear
 
     return {"lk_level": lk_level.launches, "warp_bilinear": warp_bilinear.launches,
-            "patch_bilinear": patch_bilinear.launches, "gather_rects": gather_rects.launches}
+            "patch_bilinear": patch_bilinear.launches, "gather_rects": gather_rects.launches,
+            "grid_templates": grid_templates.launches}
 
 
 def _launch_counts() -> dict:
@@ -2497,6 +2589,7 @@ def mesh_rank(dev, inp: dict) -> dict:
     fb = importlib.import_module("hackathonopticalflow_tpu_torch.ops.farneback")
     from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
     from hackathonopticalflow_tpu_torch.ops import patch as patch_mod
+    from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates_reference
     from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level_reference
     from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear_reference
     from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear_reference
@@ -2507,6 +2600,7 @@ def mesh_rank(dev, inp: dict) -> dict:
     def plain(fn):
         with eager(), mock.patch.object(fb, "warp_bilinear", warp_bilinear_reference), \
                 mock.patch.object(lk_mod, "lk_level", lk_level_reference), \
+                mock.patch.object(lk_mod, "grid_templates", grid_templates_reference), \
                 mock.patch.object(patch_mod, "patch_bilinear", patch_bilinear_reference):
             return fn()
 
@@ -2862,7 +2956,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from hackathonopticalflow_tpu_torch import kernels
 
-    names = ["lk_level", "warp_bilinear", "patch_bilinear", "gather_rects"]
+    names = ["lk_level", "warp_bilinear", "patch_bilinear", "gather_rects", "grid_templates"]
     t0 = time.perf_counter()
     paths = kernels.build_all(names)
     for name in names:
@@ -2874,7 +2968,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}:", line.strip())
     variants = {name: kernel_variants(name, path) for name, path in zip(names, paths)
-                if name in ("lk_level", "patch_bilinear")}
+                if name in ("lk_level", "patch_bilinear", "grid_templates")}
 
     def phase(fn, *args):
         t0 = time.perf_counter()
@@ -2885,6 +2979,7 @@ def main() -> int:
     clip = make_clip(dev, H, W, N_FRAMES)
     log(f"1080p clip: {tuple(clip.shape)} uint8, zoom {ZOOM}/frame")
     sparse = phase(sparse_phases, dev, clip)
+    gt = phase(grid_templates_phase, dev, clip)
     dense_clip = make_clip(dev, DENSE_H, DENSE_W, DENSE_FRAMES, DENSE_CELL)
     floor_ms = launch_floor_ms(dev)
     log(f"launch floor (the least of {FLOOR_REPLAYS} graph replays of a one-element in-place add): "
@@ -2971,7 +3066,12 @@ def main() -> int:
         total(slab[variant])
     gather["executions_by_path"] = dict(gather["launches_by_path"])
     total(gather)
-    record = {"kernels": [lk, warp, slab["f32"], slab["bf16"], pb, gather, batch_kernels["lk_level"],
+    add(gt, "grid_templates", "sparse", sparse.pop("grid_templates_runs"))
+    for path, runs in (("dense_viewer", viewer_runs), ("batch_runner", batch_runs)):
+        add(gt, "grid_templates", path, runs)
+    total(gt)
+    gt["variants"] = variants["grid_templates"]
+    record = {"kernels": [lk, warp, slab["f32"], slab["bf16"], pb, gather, gt, batch_kernels["lk_level"],
                           batch_kernels["patch_bilinear"]], **sparse, **dense, **track, **scans,
               **app, **ego, **track_app, "dense_modes_fps": modes["fps"],
               "dense_modes_median_epe_px": modes["median_epe_px"], **viewer, **batch, **mesh["record"],

@@ -4,7 +4,9 @@ Two paths, chosen by params.grid_step; every level runs
 `ops/lk_level.py::lk_level`.
 
 - grid_step set: the static measurement grid. Templates come from the
-  grid extractor. Each level's crop is one of three:
+  grid extractor (`ops/grid_templates.py`: the `grid_templates` kernel on
+  the GPU, cut from the three level planes). Each level's crop is one of
+  three:
   - at the top level of the lanes kernel, anchored at the point's grid
     position with margin iter_margin_top ("centred": the JAX lanes
     kernels' slab is that crop);
@@ -50,7 +52,8 @@ from ..core import LKParams, measurement_grid
 from .deriv import scharr_deriv
 from .image import reflect101_pad
 from .lk_level import lk_level
-from .patch import _axis_bases, axis_key, extract_grid_templates, extract_patches, extract_patches_multi
+from .grid_templates import _axis_bases, axis_key, grid_templates
+from .patch import extract_patches, extract_patches_multi
 from .pyramid import build_pyramid
 
 
@@ -225,8 +228,8 @@ def level_inputs(
     img_prev_p = prev_prep.img_p[level]
     h = img_prev_p.shape[-2] - 2 * pad
     w = img_prev_p.shape[-1] - 2 * pad
-    planes = torch.stack([img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]], dim=-3)
-    tmpl = extract_grid_templates(planes, xs, ys, level, win_w, win_h, pad)
+    tmpl = grid_templates(img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level], xs, ys, level,
+                          win_w, win_h, pad)
 
     tl0 = next_center - _halfwin(params, next_center.device)
     if _anchored(level, params):

@@ -46,7 +46,7 @@ The A and b sums are taken in float64: every term lies on the 1/1024 grid
 and is exact there, so the sums are exact and the kernel reproduces this
 version bit for bit in any summation order. The kernel sums the same
 terms as integers (x 1024), which holds on what every caller hands it:
-templates on the 1/32 grid (`extract_grid_templates`,
+templates on the 1/32 grid (`grid_templates`,
 `extract_patches_multi(quantize=True)`), gradients within +-128 (Scharr's
 1/32 scale on u8 frames) and image values in [0, 255]. (JAX's kernels and
 exact path sum in float32, so the port meets them to a tolerance.)

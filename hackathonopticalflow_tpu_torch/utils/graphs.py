@@ -67,17 +67,18 @@ _pools: dict[int, Any] = {}
 _captured: collections.Counter = collections.Counter()
 _replayed: collections.Counter = collections.Counter()
 
-KERNELS = ("lk_level", "warp_bilinear", "patch_bilinear", "gather_rects")
+KERNELS = ("lk_level", "warp_bilinear", "patch_bilinear", "gather_rects", "grid_templates")
 
 
 def _kernel_wrappers() -> tuple:
     """The kernels' wrappers, whose `launches` counters a capture reads."""
     from ..ops.gather_rects import gather_rects
+    from ..ops.grid_templates import grid_templates
     from ..ops.lk_level import lk_level
     from ..ops.patch_bilinear import patch_bilinear
     from ..ops.warp_bilinear import warp_bilinear
 
-    return lk_level, warp_bilinear, patch_bilinear, gather_rects
+    return lk_level, warp_bilinear, patch_bilinear, gather_rects, grid_templates
 
 
 def _pool(device: torch.device):

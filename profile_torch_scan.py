@@ -39,7 +39,8 @@ __wrapped__, one launch per op). It prints:
 - device time by kind of kernel (lk_level, warp_bilinear,
   patch_bilinear, index/gather, elementwise, ...) and the top device ops;
 - stage times from CUDA events for one pair: sparse: prepare_frame,
-  level_inputs and lk_level per level, pyr_lk_prepared, _post_lk; dense:
+  the grid templates, level_inputs (templates included) and lk_level per
+  level, pyr_lk_prepared, _post_lk; dense:
   prepare_frame, update_matrices and the solve per level,
   farneback_prepared; tracker: prepare_frame, one pyr_lk_prepared,
   good_features_to_track, _detect_mask, and track_step_prepared on a step
@@ -82,6 +83,7 @@ from hackathonopticalflow_tpu_torch.core import (
 from hackathonopticalflow_tpu_torch.flow import dense, lk_grid, tracker
 from hackathonopticalflow_tpu_torch.ops import features
 from hackathonopticalflow_tpu_torch.ops import lk as lk_mod
+from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level
 
 # the package's ops/__init__ re-exports a function named farneback
@@ -92,6 +94,7 @@ KINDS = (
     ("warp_bilinear", ("warp_bilinear",)),
     ("patch_bilinear", ("patch_bilinear",)),
     ("gather_rects", ("gather_rects",)),
+    ("grid_templates", ("grid_templates",)),
     ("index/gather", ("index", "gather")),
     ("sort", ("sort",)),
     ("elementwise", ("elementwise", "reduce")),
@@ -128,6 +131,10 @@ def sparse_setup(dev, pairs: int):
         for level in range(params.max_level, -1, -1):
             if level != params.max_level:
                 center = center * 2.0
+            planes = (cur.img_p[level], cur.dix_p[level], cur.diy_p[level])
+            out[f"grid_templates L{level}"] = cuda_ms(
+                lambda: grid_templates(*planes, *grid_xy, level, *params.win_size, lk_mod._frame_pad(params)), 10
+            )
             out[f"level_inputs L{level}"] = cuda_ms(
                 lambda: lk_mod.level_inputs(cur, prev, grid_xy, center, level, params), 10
             )

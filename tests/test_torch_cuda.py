@@ -31,6 +31,7 @@ from hackathonopticalflow_tpu_torch.flow import tracker as ttr
 from hackathonopticalflow_tpu_torch.ops import lk as tlk
 from hackathonopticalflow_tpu_torch.ops import patch as tpatch
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
+from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates, grid_templates_reference
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
@@ -87,6 +88,51 @@ def test_lk_level_kernel_matches_plain(cuda_device, level):
     tl_p, st_p = lk_level_reference(*args, status, **statics)
     assert torch.equal(st_k, st_p)
     assert torch.equal(tl_k, tl_p)
+
+
+def _grid_template_calls(device, params, b, h, w):
+    """Per level of `params`, (level, the three planes, the same planes as
+    slices of one (B, 3, Hp, Wp) stack) of b frames (one without a stream
+    axis), and the grid's axes and the pad."""
+    fr = np.stack(_frames(b, h, w))
+    prep = tlk.prepare_frame(torch.from_numpy(fr if b > 1 else fr[0]).to(device), params)
+    calls = []
+    for level in range(params.max_level, -1, -1):
+        planes = [prep.img_p[level], prep.dix_p[level], prep.diy_p[level]]
+        calls.append((level, planes, torch.stack(planes, -3).unbind(-3)))
+    return calls, tlk._grid_axes(h, w, params.grid_step), tlk._frame_pad(params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_kernel", ["lanes", "blocked"])
+@pytest.mark.parametrize("b", [1, 2])
+def test_grid_templates_kernel_matches_plain(cuda_device, b, grid_kernel):
+    """The review's geometry (1920x1080, 2304 points, window 45, pad 70)
+    at its three levels: one launch a level, identical to the plain
+    version, on three planes and on the planes of one stack."""
+    params = dataclasses.replace(PARAMS, grid_kernel=grid_kernel)
+    calls, (xs, ys), pad = _grid_template_calls(cuda_device, params, b, 1080, 1920)
+    assert pad == 70 and len(xs) * len(ys) == 2304
+    for level, planes, views in calls:
+        before = grid_templates.launches
+        got = grid_templates(*planes, xs, ys, level, 45, 45, pad)
+        torch.cuda.synchronize()
+        assert grid_templates.launches == before + 1
+        assert got.shape == (b * 2304, 3, 45, 45)
+        assert torch.equal(got, grid_templates_reference(*planes, xs, ys, level, 45, 45, pad)), level
+        assert torch.equal(grid_templates(*views, xs, ys, level, 45, 45, pad), got), level
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win", [(5, 5), (15, 15), (21, 21), (33, 33), (45, 21), (91, 91)])
+def test_grid_templates_windows_kernel_match_plain(cuda_device, win):
+    """Other windows, each launch shape and a window of several passes,
+    on two streams at 270x480: identical at every level."""
+    params = dataclasses.replace(PARAMS, win_size=win)
+    calls, (xs, ys), pad = _grid_template_calls(cuda_device, params, 2, 270, 480)
+    for level, planes, _ in calls:
+        got = grid_templates(*planes, xs, ys, level, *win, pad)
+        assert torch.equal(got, grid_templates_reference(*planes, xs, ys, level, *win, pad)), level
 
 
 # (b, c, h, w) of the warp's GPU tests: the 720p dense path's level sizes,
@@ -597,6 +643,33 @@ def test_graphed_step_replays_its_eager_form(cuda_device, step):
         assert len(_leaves(got)) == len(_leaves(want))
         for g, w in zip(_leaves(got), _leaves(want)):
             assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+# the grid steps and the template launches their graphs record: one a
+# level a pair, every stream in one launch
+GRID_STEPS = {"sparse step": 3, "sparse pair": 3, "pathfinder chunk": 9, "pathfinder pair": 3,
+              "batch step B=2": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", sorted(GRID_STEPS))
+def test_grid_step_captures_the_template_kernel(cuda_device, step):
+    """Each grid step's graph records the template kernel, and its replay
+    equals the eager form with the plain version patched in."""
+    fn, args = graph_steps.STEPS[step](cuda_device)
+    fn.clear()
+    owner = getattr(fn.__wrapped__, "__self__", None)
+    with eager(*([] if owner is None else [owner])), mock.patch.object(tlk, "grid_templates",
+                                                                        grid_templates_reference):
+        want = fn.__wrapped__(*args)
+    gc.collect()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    (entry,) = fn._entries.values()
+    assert entry.nodes["grid_templates"] == GRID_STEPS[step]
+    assert len(_leaves(got)) == len(_leaves(want))
+    for g, w in zip(_leaves(got), _leaves(want)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

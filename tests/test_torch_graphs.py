@@ -240,7 +240,7 @@ def test_graphed_on_cpu_calls_the_function():
 
 
 def test_reset_stats_zeroes_the_kernel_wrappers_counts():
-    """reset_stats() zeroes the four kernel wrappers' `launches` counters
+    """reset_stats() zeroes the five kernel wrappers' `launches` counters
     with the graphs' counts, as chip_smoke.py's counted runs need."""
     wrappers = graphs._kernel_wrappers()
     saved = [w.launches for w in wrappers]
@@ -250,7 +250,7 @@ def test_reset_stats_zeroes_the_kernel_wrappers_counts():
         graphs._captured.update({"lk_level": 2})
         graphs._replayed.update({"warp_bilinear": 5})
         graphs.reset_stats()
-        assert [w.launches for w in wrappers] == [0, 0, 0, 0]
+        assert [w.launches for w in wrappers] == [0, 0, 0, 0, 0]
         assert [w.__name__ for w in wrappers] == list(graphs.KERNELS)
         assert graphs.launch_stats() == {"captured": {}, "replayed": {}}
     finally:

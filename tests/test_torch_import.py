@@ -28,7 +28,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.add(m.name[len(pkg.__name__) + 1:])
 assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.features",
-        "ops.patch_bilinear", "flow.tracker", "ops.gather_rects", "apps.pathfinder", "nav.danger",
+        "ops.patch_bilinear", "flow.tracker", "ops.gather_rects", "ops.grid_templates", "apps.pathfinder", "nav.danger",
         "ops.color", "io.prefetch", "io.native_lib", "viz.layers", "utils.checkpoint", "nav.camera",
         "nav.foe", "nav.metrics", "nav.pose", "nav.ba", "nav.odometry", "apps.tracker_app",
         "apps.dense_viewer", "apps.batch_runner", "io.tools", "viz.plotter", "utils.profiling",
@@ -37,6 +37,7 @@ assert {"ops.farneback", "ops.warp_bilinear", "ops.warp", "flow.dense", "ops.fea
 from hackathonopticalflow_tpu_torch.core import FeatureParams, TrackerParams
 from hackathonopticalflow_tpu_torch.ops.lk_level import lk_level, lk_level_reference
 from hackathonopticalflow_tpu_torch.ops.gather_rects import gather_rects, gather_rects_reference
+from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates, grid_templates_reference
 from hackathonopticalflow_tpu_torch.ops.patch_bilinear import patch_bilinear, patch_bilinear_reference
 from hackathonopticalflow_tpu_torch.ops.warp_bilinear import warp_bilinear, warp_bilinear_reference
 from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow_video
@@ -72,6 +73,10 @@ assert torch.equal(patch_bilinear(planes, tl, 5, 5, True), patch_bilinear_refere
 org = torch.tensor([[3, -2], [30, 4]], dtype=torch.int32)
 assert torch.equal(gather_rects(planes, org, 6, 7), gather_rects_reference(planes, org, 6, 7))
 assert gather_rects.launches == 0
+gp = [torch.floor(torch.rand((60, 80), generator=torch.Generator().manual_seed(k)) * 255) for k in range(3)]
+assert torch.equal(grid_templates(*gp, (30, 50), (25,), 0, 7, 7, 5),
+                   grid_templates_reference(*gp, (30, 50), (25,), 0, 7, 7, 5))
+assert grid_templates.launches == 0
 params = TrackerParams(max_tracks=16, features=FeatureParams(max_corners=8, max_candidates=64))
 state, (heads, alive, length) = track_video(
     torch.floor(torch.rand((3, 48, 64), generator=g) * 255).to(torch.uint8), params, device="cpu"
@@ -109,7 +114,7 @@ cfg = BatchRunnerConfig(videos=["a", "b"], lk=LKParams(grid_step=30, compute_err
 stats = run_batch(cfg)
 assert stats["danger_counts"] == [batched["danger_counts"], batched["danger_counts"][:2]]
 assert run_batch_staged(cfg, reps=1)["danger_counts"] == stats["danger_counts"]
-assert lk_level.launches == 0
+assert lk_level.launches == 0 and grid_templates.launches == 0
 assert blocked_mods() <= before
 print("OK")
 """

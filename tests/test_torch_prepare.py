@@ -19,7 +19,7 @@ from hackathonopticalflow_tpu_torch import core as tcore
 from hackathonopticalflow_tpu_torch.ops import lk as tlk
 from hackathonopticalflow_tpu_torch.ops import pyramid as tpyr
 from hackathonopticalflow_tpu_torch.ops.image import reflect101_pad
-from hackathonopticalflow_tpu_torch.ops.patch import extract_grid_templates
+from hackathonopticalflow_tpu_torch.ops.grid_templates import grid_templates
 
 torch.set_num_threads(1)
 
@@ -139,9 +139,6 @@ def test_grid_templates_bit_exact(level):
     ref = np.asarray(extract_grid_templates_lanes(planes, xs, ys, level, 45, 45, pad))
     ref = np.transpose(ref[:, :, :45, :], (3, 0, 1, 2)).astype(np.float32) / 32.0
     tp = convert.prepared_frame(prep)
-    got = extract_grid_templates(
-        torch.stack([tp.img_p[level], tp.dix_p[level], tp.diy_p[level]]),
-        xs, ys, level, 45, 45, pad,
-    ).numpy()
+    got = grid_templates(tp.img_p[level], tp.dix_p[level], tp.diy_p[level], xs, ys, level, 45, 45, pad).numpy()
     assert got.shape == (pts.shape[0], 3, 45, 45)
     assert np.array_equal(ref, got)
