@@ -17,7 +17,8 @@ The device work is launched without host syncs (the grid path's index
 tensors are cached per clip). `run` serves latency: it reads frame t's
 result as one packed copy, right behind its own graph, and presents it
 before it waits for frame t+1. `run_batched` serves throughput: it
-fetches chunk i's result while chunk i+1 decodes and runs. Frames and
+fetches chunk i's result while chunk i+1 runs and the prefetch thread
+converts chunk i+2 into its pinned buffer. Frames and
 results cross through pinned host memory with non-blocking copies.
 Frames come from `open_reader(video)`: cv2's `VideoReader` by default,
 or any reader with height, width, fps, seek(i) and read()
@@ -273,14 +274,15 @@ class PathfinderApp:
         }
 
     def run_batched(self, chunk: int = 24, out_path: str | None = None, render: bool = False) -> dict:
-        """Headless chunked pipeline. A background thread decodes and
-        gray-converts frames (io/prefetch.py); chunks of `chunk` frame
-        pairs go to the device as one uint8 copy through a pinned buffer;
+        """Headless chunked pipeline. A background thread decodes frames
+        and converts them to gray straight into the rows of pinned chunk
+        buffers (io/prefetch.py), handing over one filled chunk of `chunk`
+        frame pairs at a time; each goes to the device as one uint8 copy;
         `lk_grid_flow_video` computes the chunk's LK -> radial normalize ->
         robust filter and `pack_grid_result` packs it into one tensor,
         which comes back with one non-blocking copy into a pinned buffer.
-        Two buffers of each kind alternate between chunks, so chunk i's
-        result is fetched while chunk i+1 decodes and runs. The tail chunk
+        Chunk i's result is fetched while chunk i+1 runs and chunk i+2 is
+        converted: three frame buffers, two result buffers. The tail chunk
         is padded with its last frame (fixed buffer shapes); only its valid
         pairs count. The per-pair outputs equal the one-pair loop's."""
         cfg = self.cfg
@@ -306,96 +308,73 @@ class PathfinderApp:
         end_abs = None if cfg.max_frames is None else cfg.start_frame + cfg.max_frames + 1
         n_decode = None if end_abs is None else max(end_abs - start_abs, 0)
         # host buffers, pinned on the GPU so that both copies run without
-        # blocking the host
+        # blocking the host. Three frame slots: one the device reads, one
+        # waiting for dispatch, one the prefetch thread fills; with two,
+        # chunk i could not be filled before chunk i-2's result was in
         n_pts = self.pts.shape[0]
-        frames_buf = [torch.empty((chunk + 1, h, w), dtype=torch.uint8, pin_memory=cuda) for _ in range(2)]
+        frames_buf = [torch.empty((chunk + 1, h, w), dtype=torch.uint8, pin_memory=cuda) for _ in range(3)]
         results_buf = [torch.empty((chunk, 10 * n_pts), dtype=torch.float32, pin_memory=cuda) for _ in range(2)]
         self.warmup(chunk)  # outside the clock
         writer = self._writer(out_path)
         pts_i = np.trunc(self.pts + 0.5).astype(np.int32)
-        pre = FramePrefetcher(cfg.video, start_frame=start_abs, max_frames=n_decode, depth=chunk + 2,
-                              keep_bgr=keep_bgr, open_reader=self.open_reader)
+        pre = FramePrefetcher(cfg.video, start_frame=start_abs, max_frames=n_decode, keep_bgr=keep_bgr,
+                              open_reader=self.open_reader, slots=[b.numpy() for b in frames_buf],
+                              first=resume_prev)
 
         n = 0
         danger_counts = []
         since_save = 0
         compute_s = 0.0
         t_start = time.time()
-        # (buffer slot, ready event, bgr frames, valid pairs, last gray, abs
-        # index of the frame after the chunk's last pair, dispatch time,
-        # chunk index: the key of the chunk's spans)
+        # (the prefetcher's Chunk, result buffer, ready event, dispatch
+        # time, chunk index: the key of the chunk's spans)
         pending = None
         n_chunks = 0
 
         def consume(p):
             nonlocal n, since_save, compute_s
-            slot, ready, bgrs, count, last_gray, abs_end, t_disp, key = p
+            item, res_slot, ready, t_disp, key = p
             if ready is not None:
                 with span("pathfinder.chunk.wait", key):
-                    ready.synchronize()  # this chunk's result is in results_buf[slot]
+                    ready.synchronize()  # the result is in, so the frames' copy is done
             compute_s += time.time() - t_disp
             with span("pathfinder.chunk.unpack", key):
-                host = unpack_grid_result(results_buf[slot].numpy(), pts_i)
+                host = unpack_grid_result(results_buf[res_slot].numpy(), pts_i)
             with span("pathfinder.chunk.present", key):
-                for i in range(count):
+                for i in range(item.pairs):
                     danger_counts.append(int(host.good[i].sum()))
                     n += 1
                     if writer is not None or render:
                         one = GridFlowResult(*[a[i] for a in host])
-                        out = self.render_frame(bgrs[i], one, fps=n / max(time.time() - t_start, 1e-9))
+                        out = self.render_frame(item.bgr[i], one, fps=n / max(time.time() - t_start, 1e-9))
                         if writer is not None:
                             writer.write(out)
-            since_save += count
+            since_save += item.pairs
             if cfg.checkpoint_path and since_save >= cfg.checkpoint_every:
-                save_checkpoint(cfg.checkpoint_path, frame_idx=np.int64(abs_end),
-                                prev_gray=np.asarray(last_gray, np.uint8))
+                # the chunk's last gray frame, written before its slot goes back
+                save_checkpoint(cfg.checkpoint_path, frame_idx=np.int64(item.end),
+                                prev_gray=frames_buf[item.slot].numpy()[item.pairs])
                 since_save = 0
+            pre.release(item.slot)
 
-        def dispatch(grays, bgrs, abs_end):
-            nonlocal pending, n_chunks
-            valid = len(grays) - 1
-            if valid < 1:
-                return
-            # the slot's previous chunk (two chunks back) was consumed before
-            # the last dispatch returned, so its copies are done
-            key = n_chunks
-            slot = n_chunks % 2
-            n_chunks += 1
-            with span("pathfinder.chunk.fill", key):
-                buf = frames_buf[slot].numpy()
-                for i, g in enumerate(grays):
-                    buf[i] = g
-                buf[len(grays):] = grays[-1]  # pad the tail chunk
-            t0 = time.time()
-            with span("pathfinder.chunk.dispatch", key):
-                packed = self._chunk(frames_buf[slot], self._pts_dev)
-                results_buf[slot].copy_(packed, non_blocking=True)
-                ready = None
-                if cuda:
-                    ready = torch.cuda.Event()
-                    ready.record(torch.cuda.current_stream(dev))
-            prev, pending = pending, (slot, ready, bgrs[1:], valid, grays[-1], abs_end, t0, key)
-            if prev is not None:
-                consume(prev)
-
-        buf_gray: list = []
-        buf_bgr: list = []
-        abs_next = start_abs  # absolute index of the next decoded frame
-        if resume_prev is not None:
-            # the checkpointed previous frame seeds the first pair
-            buf_gray.append(resume_prev)
-            buf_bgr.append(None)
         try:
             for item in pre:
-                bgr, gray = item if keep_bgr else (None, item)
-                buf_gray.append(gray)
-                buf_bgr.append(bgr)
-                abs_next += 1
-                if len(buf_gray) == chunk + 1:
-                    dispatch(buf_gray, buf_bgr, abs_next)
-                    buf_gray, buf_bgr = [buf_gray[-1]], [buf_bgr[-1]]
-            if len(buf_gray) > 1:
-                dispatch(buf_gray, buf_bgr, abs_next)
+                # the result buffer's previous chunk (two back) was consumed
+                # before the last dispatch returned, so its copy is done
+                key = n_chunks
+                res_slot = n_chunks % 2
+                n_chunks += 1
+                t0 = time.time()
+                with span("pathfinder.chunk.dispatch", key):
+                    packed = self._chunk(frames_buf[item.slot], self._pts_dev)
+                    results_buf[res_slot].copy_(packed, non_blocking=True)
+                    ready = None
+                    if cuda:
+                        ready = torch.cuda.Event()
+                        ready.record(torch.cuda.current_stream(dev))
+                prev, pending = pending, (item, res_slot, ready, t0, key)
+                if prev is not None:
+                    consume(prev)
             if pending is not None:
                 consume(pending)
         finally:

@@ -8,7 +8,8 @@
 //
 //  - bgr2gray_u8: OpenCV-exact fixed-point Rec.601 gray conversion
 //    (the per-frame preprocessing step between decode and device upload,
-//    reference call site pathfinder_viewer.py:280);
+//    reference call site pathfinder_viewer.py:280), into a caller-given
+//    destination, its rows split in bands over a pool of parked threads;
 //  - a single-producer/single-consumer frame ring buffer + background
 //    reader thread for raw byte-stream frame files (the async prefetch
 //    stage feeding device transfers — SURVEY.md §7 "design the
@@ -20,26 +21,183 @@
 // Built with: g++ -O3 -shared -fPIC -std=c++17 -pthread hofio.cpp -o libhofio.so
 
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <deque>
 #include <mutex>
 #include <thread>
 #include <vector>
 
-extern "C" {
+#include <sched.h>
+#include <unistd.h>
 
 // ---------------------------------------------------------------------------
 // BGR -> gray, OpenCV 5.x parity: Rec.601 in 15-bit fixed point
 // (B*3735 + G*19235 + R*9798 + 16384) >> 15 — verified bit-exact against
-// cv2 5.0 over the full random input space.
+// cv2 5.0 over the full random input space. Each output pixel depends on
+// its own input pixel alone, so any split of the rows gives the same bits.
 // ---------------------------------------------------------------------------
-void hof_bgr2gray_u8(const uint8_t* bgr, uint8_t* gray, int64_t n_px) {
-  for (int64_t i = 0; i < n_px; ++i) {
-    const int32_t b = bgr[3 * i], g = bgr[3 * i + 1], r = bgr[3 * i + 2];
-    gray[i] = (uint8_t)((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15);
+namespace {
+
+void gray_rows(const uint8_t* __restrict__ bgr, int64_t bgr_stride, uint8_t* __restrict__ gray,
+               int64_t gray_stride, int64_t r0, int64_t r1, int64_t cols) {
+  for (int64_t y = r0; y < r1; ++y) {
+    const uint8_t* __restrict__ s = bgr + y * bgr_stride;
+    uint8_t* __restrict__ d = gray + y * gray_stride;
+    for (int64_t x = 0; x < cols; ++x) {
+      const int32_t b = s[3 * x], g = s[3 * x + 1], r = s[3 * x + 2];
+      d[x] = (uint8_t)((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15);
+    }
   }
+}
+
+// One call's conversion; `left` counts its bands not yet converted.
+struct GrayJob {
+  const uint8_t* bgr;
+  int64_t bgr_stride;
+  uint8_t* gray;
+  int64_t gray_stride;
+  int64_t cols;
+  std::atomic<int> left;
+};
+
+struct GrayBand {
+  GrayJob* job;
+  int64_t r0, r1;
+};
+
+void run_band(const GrayBand& t) {
+  GrayJob* j = t.job;
+  gray_rows(j->bgr, j->bgr_stride, j->gray, j->gray_stride, t.r0, t.r1, j->cols);
+  // the band's last touch of the job: once `left` reads 0 its caller may
+  // return and free it
+  j->left.fetch_sub(1, std::memory_order_acq_rel);
+}
+
+// A parked thread takes longer to wake than a 1080p band takes to convert
+// (PERF.md §6), so a pool thread polls for bands this long after
+// its last one before it parks, and a caller polls for its bands' end.
+// Each poll yields the CPU, to a thread it might share it with.
+constexpr auto kSpin = std::chrono::milliseconds(2);
+
+// Threads that convert other callers' bands; started as calls ask for
+// more, never stopped. Callers from several threads share them: each call
+// waits for its own bands only.
+struct GrayPool {
+  std::mutex mu;
+  std::condition_variable cv;
+  std::deque<GrayBand> bands;
+  std::atomic<int> queued{0};  // bands.size(), read without the lock
+  int threads = 0;
+  pid_t pid = getpid();
+
+  // A thread that shares a CPU with its caller converts nothing in
+  // parallel, and the scheduler was seen to wake a pool thread onto the
+  // caller's CPU and keep it there (PERF.md §6): so a new thread
+  // leaves out of its CPUs the one its creator runs on.
+  void grow(int n) {  // under mu
+    const int creator = sched_getcpu();
+    for (; threads < n; ++threads) {
+      std::thread([this, creator] {
+        cpu_set_t cpus;
+        if (creator >= 0 && sched_getaffinity(0, sizeof(cpus), &cpus) == 0 && CPU_COUNT(&cpus) > 1) {
+          CPU_CLR(creator, &cpus);
+          sched_setaffinity(0, sizeof(cpus), &cpus);
+        }
+        work();
+      }).detach();
+    }
+  }
+
+  bool pop(GrayBand* out) {  // under mu
+    if (bands.empty()) return false;
+    *out = bands.front();
+    bands.pop_front();
+    queued.store((int)bands.size(), std::memory_order_relaxed);
+    return true;
+  }
+
+  void work() {
+    for (;;) {
+      GrayBand t;
+      auto until = std::chrono::steady_clock::now() + kSpin;
+      while (queued.load(std::memory_order_relaxed) == 0 && std::chrono::steady_clock::now() < until) {
+        std::this_thread::yield();
+      }
+      bool got;
+      {
+        std::unique_lock<std::mutex> lk(mu);
+        if (!(got = pop(&t))) {
+          cv.wait(lk, [&] { return !bands.empty(); });
+          got = pop(&t);
+        }
+      }
+      if (got) run_band(t);
+    }
+  }
+
+  // Takes a queued band of `job` that no thread has started, if one is left.
+  bool take(GrayJob* job, GrayBand* out) {
+    std::lock_guard<std::mutex> lk(mu);
+    for (auto it = bands.begin(); it != bands.end(); ++it) {
+      if (it->job == job) {
+        *out = *it;
+        bands.erase(it);
+        queued.store((int)bands.size(), std::memory_order_relaxed);
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+GrayPool& gray_pool() {
+  static std::mutex m;
+  static GrayPool* pool = nullptr;  // never freed: its threads live as long as the process
+  std::lock_guard<std::mutex> lk(m);
+  // a child made by fork has none of the parent's threads: it starts its own
+  if (pool == nullptr || pool->pid != getpid()) pool = new GrayPool();
+  return *pool;
+}
+
+}  // namespace
+
+extern "C" {
+
+// (rows, cols) gray of (rows, cols, 3) BGR; a row starts every bgr_stride
+// (gray_stride) bytes, its pixels packed. Band b of `bands` holds rows
+// [b rows / bands, (b + 1) rows / bands): the calling thread converts band
+// 0, the pool the others, and the calling thread takes back any of its
+// bands the pool has not started before it waits for the rest.
+void hof_bgr2gray_u8(const uint8_t* bgr, int64_t bgr_stride, uint8_t* gray, int64_t gray_stride,
+                     int64_t rows, int64_t cols, int bands) {
+  if (bands > rows) bands = (int)rows;
+  if (bands <= 1) {
+    gray_rows(bgr, bgr_stride, gray, gray_stride, 0, rows, cols);
+    return;
+  }
+  GrayJob job;
+  job.bgr = bgr;
+  job.bgr_stride = bgr_stride;
+  job.gray = gray;
+  job.gray_stride = gray_stride;
+  job.cols = cols;
+  job.left.store(bands - 1);
+  GrayPool& pool = gray_pool();
+  {
+    std::lock_guard<std::mutex> lk(pool.mu);
+    pool.grow(bands - 1);
+    for (int b = 1; b < bands; ++b) pool.bands.push_back({&job, b * rows / bands, (b + 1) * rows / bands});
+    pool.queued.store((int)pool.bands.size(), std::memory_order_relaxed);
+  }
+  for (int b = 1; b < bands; ++b) pool.cv.notify_one();
+  gray_rows(bgr, bgr_stride, gray, gray_stride, 0, rows / bands, cols);
+  GrayBand t;
+  while (pool.take(&job, &t)) run_band(t);
+  while (job.left.load(std::memory_order_acquire) != 0) std::this_thread::yield();
 }
 
 // u8 -> f32 copy (device staging)

@@ -9,6 +9,11 @@ another); nothing is built beside the source. -march=native lets g++
 vectorize the gray conversion's three-channel loads (PERF.md gives its
 time per 1080p frame). All entry points degrade gracefully: callers can
 check `available()` and fall back to their own paths.
+
+The gray conversion writes into a destination the caller may give (a row
+of a pinned chunk), its rows split in bands over the library's parked
+threads; `gray_bands` picks the band count from the frame's rows and the
+CPUs the process may run on. The bits do not depend on it.
 """
 
 from __future__ import annotations
@@ -63,7 +68,10 @@ def _load():
                 subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)], check=True, capture_output=True)
                 os.replace(tmp, so)
             lib = ctypes.CDLL(str(so))
-            lib.hof_bgr2gray_u8.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+            lib.hof_bgr2gray_u8.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int,
+            ]
             lib.hof_u8_to_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
             lib.hof_ring_open.restype = ctypes.c_void_p
             lib.hof_ring_open.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
@@ -85,13 +93,45 @@ def available() -> bool:
     return _load() is not None
 
 
-def bgr2gray_u8(bgr: np.ndarray) -> np.ndarray:
-    """OpenCV-exact BGR->gray on the host (native)."""
+#: the fewest rows a band of the gray conversion takes: a frame too small
+#: for two such bands converts on the calling thread alone, since waking a
+#: parked pool thread takes about as long as such a band's work (PERF.md §6)
+BAND_ROWS = 128
+
+
+def _cpus() -> int:
+    if hasattr(os, "sched_getaffinity"):
+        return len(os.sched_getaffinity(0))
+    return os.cpu_count() or 1
+
+
+def gray_bands(rows: int) -> int:
+    """Bands for a frame of `rows` rows: one a CPU the process may run on,
+    less one for the loop that consumes the frames (the converting thread
+    takes a band itself), and at least BAND_ROWS rows each; at least one.
+    Under the benchmark's four CPUs that gives three: on the four CPUs of
+    an H100 machine's host the review ran 508, 820-875 and 940 pairs/s at
+    one, two and three bands (PERF.md §6)."""
+    return max(1, min(_cpus() - 1, rows // BAND_ROWS))
+
+
+def bgr2gray_u8(bgr: np.ndarray, out: np.ndarray | None = None, bands: int | None = None) -> np.ndarray:
+    """OpenCV-exact BGR->gray on the host (native): (H, W, 3) uint8 to
+    (H, W) uint8, written into `out` when given (any array of that shape
+    whose rows are packed, such as a row of a (n, H, W) chunk), in `bands`
+    row bands (`gray_bands(H)` by default); returns the gray array."""
     lib = _load()
-    bgr = np.ascontiguousarray(bgr, dtype=np.uint8)
+    if bgr.ndim != 3 or bgr.shape[2] != 3:
+        raise ValueError(f"a BGR frame is (H, W, 3), not {bgr.shape}")
+    if bgr.dtype != np.uint8 or bgr.strides[1:] != (3, 1):
+        bgr = np.ascontiguousarray(bgr, dtype=np.uint8)
     h, w = bgr.shape[:2]
-    out = np.empty((h, w), np.uint8)
-    lib.hof_bgr2gray_u8(bgr.ctypes.data, out.ctypes.data, h * w)
+    if out is None:
+        out = np.empty((h, w), np.uint8)
+    elif out.shape != (h, w) or out.dtype != np.uint8 or out.strides[1] != 1 or not out.flags.writeable:
+        raise ValueError(f"gray destination must be writeable ({h}, {w}) uint8 with packed rows")
+    lib.hof_bgr2gray_u8(bgr.ctypes.data, bgr.strides[0], out.ctypes.data, out.strides[0], h, w,
+                        gray_bands(h) if bands is None else bands)
     return out
 
 

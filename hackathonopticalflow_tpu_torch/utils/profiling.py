@@ -8,7 +8,8 @@ kernel-level work. The counters read the host clock: around GPU work they
 measure device time only where the block ends in a synchronize.
 
 `span(name, key)` marks a stage of the port's host loops (a frame's gray
-conversion, dispatch, fetch; a chunk's fill; the prefetch thread's read).
+conversion, dispatch, fetch; a chunk's dispatch; the prefetch thread's
+read and its wait for a free chunk buffer).
 Spans are recorded only while a torch.profiler records, from any thread:
 torch.profiler keeps no `record_function` range of a thread it was not
 started on, so the spans have their own store, read by `spans()`, and

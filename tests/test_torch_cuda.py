@@ -16,7 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import counted, eager, sample_texture, scene_table, smooth_texture, strict_replays, tracker_points
+from chip_smoke import (
+    ClipReader,
+    counted,
+    eager,
+    sample_texture,
+    scene_table,
+    smooth_texture,
+    strict_replays,
+    tracker_points,
+)
 
 from hackathonopticalflow_tpu_torch.core import (
     TRACKER_LK,
@@ -612,6 +621,34 @@ def test_ego_motion_default_route_matches_gpu_geometry(cuda_device):
     assert host.kf_idx.tolist() == card.kf_idx.tolist() and len(host.kf_idx) >= 4
     span = np.linalg.norm(host.centers - host.centers[0], axis=-1).max()
     assert np.abs(host.centers - card.centers).max() <= 1e-3 * span
+
+
+@pytest.mark.cuda
+def test_run_batched_on_the_card_equals_the_scan(cuda_device):
+    """run_batched on the card: 22 frames in chunks of 4 pairs, so its
+    three pinned slots each take two chunks and the last chunk is a
+    padded tail of one pair; each pair's eight arrays equal
+    lk_grid_flow_video's over the same frames."""
+    from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
+    from hackathonopticalflow_tpu_torch.flow.lk_grid import GridFlowResult, lk_grid_flow_video
+
+    frames = np.stack(_frames(22, dx=2, dy=1))
+
+    class Keeping(PathfinderApp):
+        def render_frame(self, img, res, fps=None):
+            self.kept.append(GridFlowResult(*[np.array(a) for a in res]))
+            return img
+
+    app = Keeping(PathfinderConfig(video="clip", lk=PARAMS, device="cuda"), open_reader=lambda path: ClipReader(frames))
+    app.kept = []
+    gc.collect()  # another test's dropped app would free its graph during this capture
+    stats = app.run_batched(chunk=4, render=True)
+    assert stats["frames"] == len(app.kept) == 21
+    pts = torch.from_numpy(measurement_grid(*frames.shape[1:], PARAMS.grid_step)).to(cuda_device)
+    want = lk_grid_flow_video(torch.from_numpy(frames), pts, PARAMS, device=cuda_device)
+    for i, got in enumerate(app.kept):
+        for name in GridFlowResult._fields:
+            assert np.array_equal(getattr(got, name), getattr(want, name)[i].cpu().numpy()), (i, name)
 
 
 def _leaves(tree):

@@ -134,22 +134,30 @@ def test_run_batched_leaves_chunk_and_prefetch_spans():
         stats = app.run_batched(chunk=2, render=True)
     got = spans()
     assert stats["frames"] == 5
-    # three chunks of 2, 2 and 1 pairs; no event to wait on on the CPU
-    for name in ("pathfinder.chunk.fill", "pathfinder.chunk.dispatch", "pathfinder.chunk.unpack",
-                 "pathfinder.chunk.present"):
+    # three chunks of 2, 2 and 1 pairs; no event to wait on on the CPU; the
+    # prefetch thread fills the chunks, so the main loop has no fill
+    for name in ("pathfinder.chunk.dispatch", "pathfinder.chunk.unpack", "pathfinder.chunk.present"):
         assert _keys(got, name) == [0, 1, 2], name
-    # frames 0-5 read and converted, and the read that finds the end;
-    # the consumer takes the six frames and the end marker
+    assert "pathfinder.chunk.fill" not in {s.name for s in got}
+    # frames 0-5 read and converted into their rows, and the read that
+    # finds the end; the consumer takes the three chunks and the end marker
     assert _keys(got, "prefetch.read") == list(range(7))
     assert _keys(got, "prefetch.gray") == list(range(6))
-    assert sorted(_keys(got, "prefetch.get")) == list(range(7))
-    assert {s.name for s in got} == {"pathfinder.chunk.fill", "pathfinder.chunk.dispatch", "pathfinder.chunk.unpack",
-                                     "pathfinder.chunk.present", "prefetch.read", "prefetch.gray", "prefetch.get"}
+    assert sorted(_keys(got, "prefetch.get")) == list(range(4))
+    # a wait for a free slot, at most one a chunk
+    waits = _keys(got, "prefetch.slot_wait")
+    assert len(set(waits)) == len(waits) and set(waits) <= {0, 1, 2}
+    assert {s.name for s in got} - {"prefetch.slot_wait"} == {
+        "pathfinder.chunk.dispatch", "pathfinder.chunk.unpack", "pathfinder.chunk.present", "prefetch.read",
+        "prefetch.gray", "prefetch.get"}
     main = threading.get_native_id()
-    assert all((s.thread != main) == (s.name in ("prefetch.read", "prefetch.gray")) for s in got)
+    on_prefetch = ("prefetch.read", "prefetch.gray", "prefetch.slot_wait")
+    assert all((s.thread != main) == (s.name in on_prefetch) for s in got)
     at = {(s.name, s.key): s for s in got}
-    for k in range(6):
-        assert at["prefetch.gray", k].end_ns <= at["prefetch.get", k].end_ns
+    # a chunk is handed over after its last frame's conversion: frames 2,
+    # 4 and 5 end chunks 0, 1 and 2
+    for chunk, last in enumerate((2, 4, 5)):
+        assert at["prefetch.gray", last].end_ns <= at["prefetch.get", chunk].end_ns
 
 
 def test_farneback_flow_video_leaves_its_preparation_spans():
