@@ -2,13 +2,14 @@
 hackathonopticalflow_tpu/apps/batch_runner.py; BASELINE.json config 4,
 "all repo flight videos processed concurrently").
 
-B videos decode in lockstep (one background prefetcher each), their frames
-stack into one (B, H, W) uint8 batch, and one stream-batched grid-LK step
+B videos decode in lockstep (one background prefetcher each, which
+converts each frame straight into its stream's row of a pinned (B, H, W)
+uint8 batch), and one stream-batched grid-LK step
 (`flow/lk_grid.py::lk_grid_flow_prepared`: LK -> radial normalize ->
 robust filter, the statistics per stream) runs all streams with one
 `lk_level` launch per level, as the JAX package's vmap of its Pallas
 kernels adds a batch grid axis. A stream whose decode ends is masked out
-while the batch keeps running: its slot repeats its last frame and its
+while the batch keeps running: its row repeats its last frame and its
 results are dropped (SURVEY.md §5.3).
 
 A device runs all of its streams as one batch: the JAX package's
@@ -24,10 +25,24 @@ gathered in stream order: equal to the one-device run's.
 
 Frames come from `open_reader(video)`: cv2's `VideoReader` by default, or
 any reader with height, width, seek(i) and read() (io/prefetch.py).
+
+A step packs the B streams' results into one tensor, which crosses to
+the host with one copy a step; the danger counts are read from it, and
+`on_result` is handed every live pair's whole result.
+
+Each step leaves spans (utils/profiling.py::span, recorded only under a
+torch.profiler), keyed by its step index: `batch.step.fill` (the
+prefetchers' frames taken, ended streams' rows copied from the batch
+before; the last one finds every stream ended and dispatches nothing),
+`batch.step.dispatch` (the graph, the result's copy, the event),
+`batch.step.wait` (the wait on that event, on the GPU only) and
+`batch.step.unpack` (the unpacked results, the counts and the hook's
+calls), the last two one step late.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
@@ -39,7 +54,14 @@ import torch.distributed as dist
 
 from ..core import FilterParams, LKParams, NormalizeParams, measurement_grid
 from ..flow.device import resolve_device
-from ..flow.lk_grid import lk_grid_flow_prepared, lk_grid_flow_video, search_frame
+from ..flow.lk_grid import (
+    GridFlowResult,
+    lk_grid_flow_prepared,
+    lk_grid_flow_video,
+    pack_grid_result,
+    search_frame,
+    unpack_grid_result,
+)
 from ..io.prefetch import FramePrefetcher
 from ..io.video import VideoReader
 from ..ops.lk import prepare_frame
@@ -47,10 +69,14 @@ from ..parallel.mesh import init_multihost, rank_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.graphs import graphed
 from ..utils.logging import get_logger
+from ..utils.profiling import span
 
 log = get_logger("apps.batch_runner")
 
 STAGED_CHUNK = 24  # frame pairs per chunk of run_batch_staged
+#: run_batch's pinned (B, H, W) frame batches: one the device reads, one
+#: waiting for dispatch, one the prefetchers fill
+BATCH_SLOTS = 3
 #: the reference clips, which the command line runs with --corpus or
 #: without videos (the JAX package's runner globs the same)
 CORPUS_GLOB = "/root/reference/videos/*.mp4"
@@ -80,6 +106,17 @@ class BatchRunnerConfig:
     device: str = "cuda"
     #: opens a video: VideoReader (cv2) or any reader with its interface
     open_reader: Callable = VideoReader
+    #: called as on_result(stream, pair, result) for every pair of every
+    #: live stream, in step order and, within a step, in stream order:
+    #: `stream` indexes `videos`, `pair` is the pair's index in its
+    #: stream, counted from 1 (pair k joins frames k - 1 and k; a resumed
+    #: run goes on from the checkpoint's pair: result `pair` is
+    #: danger_counts[stream][pair - 1] of the uninterrupted run), `result`
+    #: is a GridFlowResult of host numpy arrays, (N, ...) each, some of
+    #: them views of a buffer that a later step overwrites: valid only
+    #: during the call, so copy what is kept. An ended stream gets no more
+    #: calls. With n_devices > 1 the rank that runs a stream calls it.
+    on_result: Callable[[int, int, GridFlowResult], None] | None = None
 
 
 def _device(cfg: BatchRunnerConfig) -> torch.device:
@@ -116,16 +153,22 @@ def _checkpoint_step(path: str | None) -> int | None:
 def run_batch(cfg: BatchRunnerConfig) -> dict:
     """Streams every video in lockstep through one stream-batched step per
     frame index; returns run metrics and each stream's per-pair danger
-    counts (its `good` sums).
+    counts (its `good` sums), and hands each pair's whole result to
+    `cfg.on_result` where it is set.
 
-    Frames cross through two pinned (B, H, W) buffers that alternate
-    between steps; the previous step's prepared pyramid stays on the
-    device. A step (`_batch_step`: the frames' pyramid, the batched flow,
-    the counts) runs as one captured graph on the GPU, at the fixed B:
-    ended streams stay in the batch, masked on the host. Each step's
-    counts come back with one non-blocking copy behind an event and are
-    read one step late, while the next step runs. The first step is run
-    once before the clock starts (kernel build, index caches, capture).
+    Frames cross through BATCH_SLOTS pinned (B, H, W) batches, which the
+    prefetchers fill (stream i's frame into row i) and get back once the
+    step that read the batch is consumed; the previous step's prepared
+    pyramid stays on the device. A step (`_batch_step`: the frames'
+    pyramid, the batched flow, the results packed) runs as one captured
+    graph on the GPU, at the fixed B: ended streams stay in the batch,
+    masked on the host. Each
+    step's results, packed by `pack_grid_result` into one (B, 10 N)
+    float32 tensor, come back with one non-blocking copy behind an event
+    into one of two pinned slots, and are unpacked one step late, while
+    the next step runs: the counts are their `good` sums, and each live
+    pair goes to `cfg.on_result`. The first step is run once before the
+    clock starts (kernel build, index caches, capture).
 
     With n_devices > 1 every rank of the world calls it: rank r < n runs
     its block of streams this way on its own device
@@ -136,7 +179,7 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
     resume under the same n continues as the one-device run's does."""
     if cfg.n_devices in (None, 1):
         n = 1
-        blocks = [_run_block(cfg, cfg.videos, resolve_device(cfg.device), cfg.checkpoint_path)]
+        blocks = [_run_block(cfg, cfg.videos, resolve_device(cfg.device), cfg.checkpoint_path, 0)]
     else:
         n = _shards(cfg)
         rank = dist.get_rank()
@@ -154,7 +197,8 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
             )
         block = last_prev = None
         if rank < n:
-            block = _run_block(cfg, cfg.videos[rank * per : (rank + 1) * per], rank_device(cfg.device), ck)
+            block = _run_block(cfg, cfg.videos[rank * per : (rank + 1) * per], rank_device(cfg.device), ck,
+                               rank * per)
             last_prev = block.pop("last_prev")
         blocks = [None] * dist.get_world_size()
         dist.all_gather_object(blocks, block)
@@ -184,25 +228,34 @@ def run_batch(cfg: BatchRunnerConfig) -> dict:
     }
 
 
-def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoint_path: str | None) -> dict:
-    """run_batch's loop over one device's block of streams: their danger
-    counts, the step counter at the start and at the end, the first frame
-    decoded, the wall time and the last frame batch."""
+def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoint_path: str | None,
+               stream0: int) -> dict:
+    """run_batch's loop over one device's block of streams, the first of
+    them stream `stream0` of the run: their danger counts, the step
+    counter at the start and at the end, the first frame decoded, the wall
+    time and the last frame batch."""
     cuda = dev.type == "cuda"
     b = len(videos)
+    hook = cfg.on_result
 
     # resume: restore (step index, previous frame batch, alive mask) and
     # pick each stream's decode up where the checkpoint left it
+    # every stream's frame size, which the batch buffers take
+    sizes = set()
+    for v in videos:
+        probe = cfg.open_reader(v)
+        sizes.add((probe.height, probe.width))
+        probe.release()
+    if len(sizes) > 1:
+        raise ValueError(f"streams must share resolution for batching, not {sorted(sizes)}")
+    h, w = sizes.pop()
     resume = None
     if checkpoint_path and os.path.exists(checkpoint_path):
-        probe = cfg.open_reader(videos[0])
-        h0, w0 = probe.height, probe.width
-        probe.release()
         resume = load_checkpoint(
             checkpoint_path,
             {
                 "n_steps": np.int64(0),
-                "prev": np.zeros((b, h0, w0), np.uint8),
+                "prev": np.zeros((b, h, w), np.uint8),
                 "alive": np.zeros((b,), bool),
             },
         )
@@ -214,36 +267,46 @@ def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoi
     n_steps0 = 0 if resume is None else int(resume["n_steps"])
     start = 0 if resume is None else n_steps0 + 1  # first frame to decode
     remaining = None if cfg.max_frames is None else cfg.max_frames - start
+    # Stream i's prefetcher converts each frame straight into row i of a
+    # free batch; every prefetcher is handed the batches back in the same
+    # order, so they fill the same batch for a step.
+    frames_buf = [torch.empty((b, h, w), dtype=torch.uint8, pin_memory=cuda) for _ in range(BATCH_SLOTS)]
     prefetchers = [
-        FramePrefetcher(v, start_frame=start, max_frames=remaining, open_reader=cfg.open_reader)
-        for v in videos
+        FramePrefetcher(v, start_frame=start, max_frames=remaining, open_reader=cfg.open_reader,
+                        slots=[buf.numpy()[i : i + 1] for buf in frames_buf])
+        for i, v in enumerate(videos)
     ]
     try:
         iters = [iter(p) for p in prefetchers]
+        # (step index, batch) of the batches the device may still read,
+        # handed back to the prefetchers once that step is consumed
+        held = collections.deque()
         if resume is None:
-            first = [next(it, None) for it in iters]
-            if any(f is None for f in first):
+            items = [next(it, None) for it in iters]
+            if any(c is None for c in items):
                 raise IOError("a stream has no first frame")
-            if any(f.shape != first[0].shape for f in first):
-                raise ValueError("streams must share resolution for batching")
-            first = np.stack(first)
+            slot = _shared_slot(items)
+            held.append((n_steps0, slot))
+            prev, first = frames_buf[slot].numpy(), frames_buf[slot]
             alive = np.ones(b, bool)
         else:
-            first = np.asarray(resume["prev"], np.uint8)
+            prev = np.asarray(resume["prev"], np.uint8)
+            first = torch.from_numpy(prev)
+            if cuda:
+                first = first.pin_memory()
             alive = np.array(resume["alive"], bool)
-        h, w = first.shape[1:]
-        pts = torch.from_numpy(measurement_grid(h, w, cfg.step)).to(dev)
+        grid = measurement_grid(h, w, cfg.step)
+        pts = torch.from_numpy(grid).to(dev)
+        pts_i = np.trunc(grid + 0.5).astype(np.int32)
 
-        frames_buf = [torch.empty((b, h, w), dtype=torch.uint8, pin_memory=cuda) for _ in range(2)]
-        counts_buf = [torch.empty((b,), dtype=torch.int32, pin_memory=cuda) for _ in range(2)]
-        frames_buf[0].numpy()[:] = first
-        prev_planes = prepare_frame(frames_buf[0].to(dev, non_blocking=True), cfg.lk).img_p
+        out_buf = [torch.empty((b, 10 * grid.shape[0]), dtype=torch.float32, pin_memory=cuda) for _ in range(2)]
+        prev_planes = prepare_frame(first.to(dev, non_blocking=True), cfg.lk).img_p
 
         def step(prev_planes, frames):
             return _batch_step(prev_planes, frames, pts, cfg.lk, cfg.norm, cfg.filt)
 
         if cuda:  # build, cache and capture outside the clock
-            step(prev_planes, frames_buf[0])
+            step(prev_planes, first)
             torch.cuda.synchronize(dev)
 
         danger_counts: list[list[int]] = [[] for _ in range(b)]
@@ -252,59 +315,73 @@ def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoi
 
         def consume(p):
             nonlocal since_save
-            slot, ready, alive_at, n_steps_at = p
+            oslot, fslot, ready, alive_at, n_steps_at = p
             if ready is not None:
-                ready.synchronize()  # this step's counts are in counts_buf[slot]
-            counts = counts_buf[slot].numpy()
-            for i in range(b):
-                if alive_at[i]:
-                    danger_counts[i].append(int(counts[i]))
+                with span("batch.step.wait", n_steps_at):
+                    ready.synchronize()  # this step's output is in out_buf[oslot]
+            with span("batch.step.unpack", n_steps_at):
+                host = unpack_grid_result(out_buf[oslot].numpy(), pts_i)
+                counts = host.good.sum(-1)
+                for i in range(b):
+                    if alive_at[i]:
+                        danger_counts[i].append(int(counts[i]))
+                        if hook is not None:
+                            # a live stream's pair k is step k's
+                            hook(stream0 + i, n_steps_at, GridFlowResult(*[a[i] for a in host]))
             since_save += 1
             if checkpoint_path and since_save >= cfg.checkpoint_every:
                 save_checkpoint(
                     checkpoint_path,
                     n_steps=np.int64(n_steps_at),
-                    prev=frames_buf[slot].numpy().copy(),
+                    prev=frames_buf[fslot].numpy().copy(),
                     alive=alive_at.copy(),
                 )
                 since_save = 0
+            # the device has read every batch up to this step's; an ended
+            # stream's row keeps its last frame, which no prefetcher
+            # writes again
+            while held and held[0][0] <= n_steps_at:
+                _, done = held.popleft()
+                for pre in prefetchers:
+                    pre.release(done)
 
-        # (buffer slot, ready event, alive mask, step index) of the step
-        # whose counts are still to be read
+        # (result buffer, frame batch, ready event, alive mask, step
+        # index) of the step whose output is still to be read
         pending = None
-        slot = 0  # the buffer that holds the previous frame batch
         t0 = time.time()
         while alive.any():
-            # this buffer's last copies (two steps back) were waited for
-            # when that step was consumed
-            nslot = 1 - slot
-            cur, prev = frames_buf[nslot].numpy(), frames_buf[slot].numpy()
-            for i, it in enumerate(iters):
-                nxt = next(it, None) if alive[i] else None
-                if nxt is None:
-                    if alive[i]:
+            key = n_steps + 1  # the step's index, its spans' key
+            with span("batch.step.fill", key):
+                items = [next(it, None) if alive[i] else None for i, it in enumerate(iters)]
+                for i, c in enumerate(items):
+                    if c is None and alive[i]:
                         alive[i] = False  # stream ended; keep the batch shape, mask its results
                         log.info("stream %d ended at step %d", i, n_steps)
-                    cur[i] = prev[i]
-                else:
-                    cur[i] = nxt
+                if alive.any():
+                    slot = _shared_slot(items)
+                    cur = frames_buf[slot].numpy()
+                    for i in np.flatnonzero(~alive):
+                        cur[i] = prev[i]
             if not alive.any():
                 break
-            counts, cur_planes = step(prev_planes, frames_buf[nslot])
-            counts_buf[nslot].copy_(counts, non_blocking=True)
-            ready = None
-            if cuda:
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(dev))
+            with span("batch.step.dispatch", key):
+                oslot = key % 2
+                out, cur_planes = step(prev_planes, frames_buf[slot])
+                out_buf[oslot].copy_(out, non_blocking=True)
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(dev))
             n_steps += 1
-            last, pending = pending, (nslot, ready, alive.copy(), n_steps)
+            held.append((n_steps, slot))
+            last, pending = pending, (oslot, slot, ready, alive.copy(), n_steps)
             if last is not None:
                 consume(last)
-            prev_planes, slot = cur_planes, nslot
+            prev_planes, prev = cur_planes, cur
         if pending is not None:
             consume(pending)
         wall = time.time() - t0
-        last_prev = frames_buf[slot].numpy().copy()
+        last_prev = prev.copy()
     finally:
         for p in prefetchers:
             p.close()
@@ -312,17 +389,27 @@ def _run_block(cfg: BatchRunnerConfig, videos: list, dev: torch.device, checkpoi
             "wall_s": wall, "last_prev": last_prev}
 
 
+def _shared_slot(items: list) -> int:
+    """The frame batch the live streams' prefetchers filled for a step
+    (`Chunk`s, None for an ended stream): the same for all of them."""
+    slots = {c.slot for c in items if c is not None}
+    if len(slots) != 1:
+        raise RuntimeError(f"the streams' prefetchers filled different frame batches {sorted(slots)}")
+    return slots.pop()
+
+
 @graphed
 def _batch_step(prev_planes: tuple, frames: torch.Tensor, pts: torch.Tensor, lk: LKParams, norm: NormalizeParams,
                 filt: FilterParams):
-    """One step of run_batch for its B streams: (each stream's danger
-    count (B,) int32, the frames' padded image levels for the next step,
-    all that the step reads of the previous frames: flow/lk_grid.py::
-    search_frame). frames (B, H, W) uint8 cross from their pinned buffer
-    straight into the captured graph's input on the GPU."""
+    """One step of run_batch for its B streams: (their results packed by
+    pack_grid_result, (B, 10 N) float32; the frames' padded image levels
+    for the next step, all that the step reads of the previous frames:
+    flow/lk_grid.py::search_frame). frames (B, H, W) uint8 cross from
+    their pinned buffer straight into the captured graph's input on the
+    GPU."""
     cur_prep = prepare_frame(frames.to(pts.device), lk)
     res = lk_grid_flow_prepared(search_frame(prev_planes), cur_prep, pts, lk, norm, filt)
-    return res.good.sum(-1, dtype=torch.int32), cur_prep.img_p
+    return pack_grid_result(res), cur_prep.img_p
 
 
 def run_batch_staged(cfg: BatchRunnerConfig, reps: int = 3) -> dict:

@@ -12,12 +12,14 @@ check `available()` and fall back to their own paths.
 
 The gray conversion writes into a destination the caller may give (a row
 of a pinned chunk), its rows split in bands over the library's parked
-threads; `gray_bands` picks the band count from the frame's rows and the
-CPUs the process may run on. The bits do not depend on it.
+threads; `gray_bands` picks the band count from the frame's rows, the
+CPUs the process may run on and the threads converting at the same time.
+The bits do not depend on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -105,14 +107,36 @@ def _cpus() -> int:
     return os.cpu_count() or 1
 
 
+_converters = 0  # threads inside converting()
+_converters_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def converting():
+    """Counts the calling thread, while inside, among the threads that
+    convert frames at the same time, each a stream of its own (a frame
+    prefetcher's thread): gray_bands shares the CPUs among them."""
+    global _converters
+    with _converters_lock:
+        _converters += 1
+    try:
+        yield
+    finally:
+        with _converters_lock:
+            _converters -= 1
+
+
 def gray_bands(rows: int) -> int:
-    """Bands for a frame of `rows` rows: one a CPU the process may run on,
-    less one for the loop that consumes the frames (the converting thread
-    takes a band itself), and at least BAND_ROWS rows each; at least one.
-    Under the benchmark's four CPUs that gives three: on the four CPUs of
-    an H100 machine's host the review ran 508, 820-875 and 940 pairs/s at
-    one, two and three bands (PERF.md §6)."""
-    return max(1, min(_cpus() - 1, rows // BAND_ROWS))
+    """Bands for a frame of `rows` rows: the CPUs the process may run on,
+    less one for the loop that consumes the frames, shared by the threads
+    that convert at the same time (`converting`; a converting thread takes
+    a band itself), at least BAND_ROWS rows each; at least one. Under the
+    benchmark's four CPUs one converting thread gets three bands: on the
+    four CPUs of an H100 machine's host the review ran 508, 820-875 and 940
+    pairs/s at one, two and three. Four threads, the fleet's, get one each:
+    their bands queued on the one pool of parked threads, polling, took the
+    CPUs the consuming loop needed (PERF.md §6)."""
+    return max(1, min((_cpus() - 1) // max(_converters, 1), rows // BAND_ROWS))
 
 
 def bgr2gray_u8(bgr: np.ndarray, out: np.ndarray | None = None, bands: int | None = None) -> np.ndarray:

@@ -85,8 +85,10 @@ class FramePrefetcher:
     fills, a chunk at a time, after the consumer's `release(slot)` of the
     chunk before in that slot; row 0 of each chunk carries the last row of
     the one before, and `first` (the gray frame before `start_frame`, on a
-    resume) that of the first chunk. A slot is never refilled before it is
-    released. Per frame, `depth` items may wait in the queue."""
+    resume) that of the first chunk. Slots of one row take a frame each
+    and carry nothing (a `Chunk` of 0 pairs: its frame in row 0). A slot is
+    never refilled before it is released. Per frame, `depth` items may wait
+    in the queue."""
 
     def __init__(
         self,
@@ -112,7 +114,7 @@ class FramePrefetcher:
             self._free.put(i)
         self.q: queue.Queue = queue.Queue(maxsize=depth if slots is None else len(slots))
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
     def release(self, slot: int) -> None:
@@ -149,10 +151,16 @@ class FramePrefetcher:
         rows[filled:] = rows[filled - 1]  # a short tail repeats its last frame
         return Chunk(slot, pairs, bgrs[len(bgrs) - pairs :] if self.keep_bgr else None, self.start_frame + n)
 
+    def _run(self):
+        # the band count of each conversion counts this thread among those
+        # converting at the same time
+        with native_lib.converting():
+            self._work()
+
     def _work(self):
         # a chunk's last row is the next one's row 0; a frame's row is its own
-        overlap = 0 if self.slots is None else 1
-        carry = self._first
+        overlap = 0 if self.slots is None or len(self.slots[0]) == 1 else 1
+        carry = self._first if overlap else None
         n = 0  # frames read and converted
         key = 0  # items opened
         slot, rows, filled, bgrs = None, None, 0, []

@@ -12,9 +12,17 @@ on the CPU. Mirrors tests/test_apps.py's batch-runner tests:
   prev" invariant; a rerun after every stream ended resumes from the last
   periodic checkpoint, as JAX's does;
 - device="cuda" without CUDA raises; so does n_devices > 1 outside a
-  world of ranks, and staged.
+  world of ranks, and staged;
+- `on_result`, at the benchmark's pathfinder configuration over three
+  in-memory zoom clips of 7, 4 and 6 frames: every call's eight arrays
+  equal the benchmark's plain reference (portbench/reference/lk_grid.py)
+  on that stream alone, bit for bit; the calls come in step order and
+  stop at a stream's end; every returned key but the times is the
+  hook-less run's.
 """
 
+import copy
+import json
 from unittest import mock
 
 import numpy as np
@@ -23,12 +31,19 @@ import torch
 
 cv2 = pytest.importorskip("cv2")
 
+from chip_smoke import ClipReader  # noqa: E402
 from hackathonopticalflow_tpu.apps.batch_runner import BatchRunnerConfig as JConfig  # noqa: E402
 from hackathonopticalflow_tpu.apps.batch_runner import run_batch as j_run_batch  # noqa: E402
 from hackathonopticalflow_tpu_torch.apps import batch_runner as tbr  # noqa: E402
 from hackathonopticalflow_tpu_torch.core import LKParams, measurement_grid  # noqa: E402
 from hackathonopticalflow_tpu_torch.flow.lk_grid import lk_grid_flow_video  # noqa: E402
 from hackathonopticalflow_tpu_torch.io.video import read_frames  # noqa: E402
+from portbench.harness.clip import host_bgr, make_clip  # noqa: E402
+from portbench.harness.grid_check import FIELDS  # noqa: E402
+from portbench.harness.port import grid_params  # noqa: E402
+from portbench.harness.spec import BENCH_DIR  # noqa: E402
+from portbench.reference.image import bgr2gray_u8  # noqa: E402
+from portbench.reference.lk_grid import LKGridReference  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -175,3 +190,80 @@ def test_cuda_without_cuda_and_several_devices_raise(clips):
         tbr.run_batch(_cfg(clips, n_devices=2))
     with pytest.raises(ValueError, match="one device"):
         tbr.run_batch_staged(_cfg(clips, n_devices=2))
+
+
+# ---- on_result ----
+
+HOOK_LENGTHS = (7, 4, 6)  # frames a stream: stream 1 ends after 3 pairs, stream 2 after 5
+
+
+@pytest.fixture(scope="module")
+def hooked():
+    """The benchmark's pathfinder configuration at H x W, three zoom clips
+    from their own seeds as BGR, and run_batch over them without and with
+    the hook: (config, clips, hook-less stats, stats, the hook's calls
+    as (stream, pair, eight arrays))."""
+    with open(BENCH_DIR / "configs" / "pathfinder-1080p.json") as f:
+        cfg = copy.deepcopy(json.load(f))
+    cfg.update(height=H, width=W)
+    clips = [host_bgr(make_clip("cpu", H, W, n, 6, 1000 + i, 1.02)) for i, n in enumerate(HOOK_LENGTHS)]
+    calls = []
+
+    def keep(stream, pair, res):
+        calls.append((stream, pair, [np.array(getattr(res, f)) for f in FIELDS]))
+
+    return cfg, clips, _hook_run(cfg, clips, None), _hook_run(cfg, clips, keep), calls
+
+
+def _hook_run(cfg, clips, hook, **kw):
+    lk, norm, filt = grid_params(cfg)
+    return tbr.run_batch(tbr.BatchRunnerConfig(
+        videos=[str(i) for i in range(len(clips))], step=lk.grid_step, lk=lk, norm=norm, filt=filt,
+        device="cpu", open_reader=lambda v: ClipReader(clips[int(v)]), on_result=hook, **kw))
+
+
+def test_hook_results_equal_the_plain_reference_per_stream(hooked):
+    cfg, clips, _, _, calls = hooked
+    ref = LKGridReference(cfg, "cpu")
+    assert len(calls) == sum(n - 1 for n in HOOK_LENGTHS)
+    for stream, pair, got in calls:
+        gray = [torch.from_numpy(bgr2gray_u8(clips[stream][i])) for i in (pair - 1, pair)]
+        want = ref.pair(ref.prepare(gray[0]), ref.prepare(gray[1]))
+        for name, g, w in zip(FIELDS, got, want):
+            assert g.shape == w.shape and np.array_equal(g, w.numpy()), (stream, pair, name)
+
+
+def test_hook_calls_come_in_step_order_and_stop_at_a_streams_end(hooked):
+    *_, stats, calls = hooked
+    want = [(s, k) for k in range(1, max(HOOK_LENGTHS)) for s in range(3) if k < HOOK_LENGTHS[s]]
+    assert [(s, k) for s, k, _ in calls] == want
+    assert [len(c) for c in stats["danger_counts"]] == [n - 1 for n in HOOK_LENGTHS]
+    # a pair's count is its result's `good` sum
+    for s, k, arrays in calls:
+        assert stats["danger_counts"][s][k - 1] == int(arrays[FIELDS.index("good")].sum())
+
+
+def test_hook_leaves_every_returned_key_unchanged(hooked):
+    _, _, plain, stats, _ = hooked
+    assert stats.keys() == plain.keys()
+    for key in stats.keys() - {"wall_s", "aggregate_fps"}:
+        assert stats[key] == plain[key], key
+    assert stats["steps"] == max(HOOK_LENGTHS) - 1 and stats["total_frames"] == sum(HOOK_LENGTHS) - 3
+
+
+def test_hook_pairs_go_on_from_the_checkpoint_after_a_resume(hooked, tmp_path):
+    """A run cut after 3 steps (its checkpoint at step 2) and its resume:
+    the resumed run's calls are numbered from pair 3 on, as the
+    uninterrupted run's, each with that run's arrays."""
+    cfg, clips, _, _, full = hooked
+    ck = str(tmp_path / "hook.ckpt.npz")
+    parts = []
+    for max_frames in (4, None):
+        calls = []
+        _hook_run(cfg, clips, lambda s, k, res: calls.append((s, k, [np.array(getattr(res, f)) for f in FIELDS])),
+                  max_frames=max_frames, checkpoint_path=ck, checkpoint_every=2)
+        parts.append(calls)
+    for part, want in zip(parts, ([c for c in full if c[1] <= 3], [c for c in full if c[1] >= 3])):
+        assert [(s, k) for s, k, _ in part] == [(s, k) for s, k, _ in want]
+        for (_, _, got), (_, _, arrays) in zip(part, want):
+            assert all(np.array_equal(g, w) for g, w in zip(got, arrays))

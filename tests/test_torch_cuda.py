@@ -651,6 +651,39 @@ def test_run_batched_on_the_card_equals_the_scan(cuda_device):
             assert np.array_equal(getattr(got, name), getattr(want, name)[i].cpu().numpy()), (i, name)
 
 
+@pytest.mark.cuda
+def test_run_batch_hook_on_the_card_equals_each_streams_scan(cuda_device):
+    """run_batch on the card with on_result: three streams of 9, 6 and 8
+    frames, so two slots of the pinned results alternate and two streams
+    end early; each call's eight arrays equal lk_grid_flow_video's over
+    that stream alone, and the counts equal the hook-less run's."""
+    from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch
+    from hackathonopticalflow_tpu_torch.flow.lk_grid import GridFlowResult, lk_grid_flow_video
+
+    clips = [np.stack(_frames(n, dx=dx, dy=1)) for n, dx in ((9, 2), (6, 4), (8, 1))]
+    calls = []
+
+    def keep(stream, pair, res):
+        calls.append((stream, pair, GridFlowResult(*[np.array(a) for a in res])))
+
+    def cfg(hook):
+        return BatchRunnerConfig(videos=["0", "1", "2"], lk=PARAMS, device="cuda", on_result=hook,
+                                 open_reader=lambda name: ClipReader(clips[int(name)]))
+
+    gc.collect()
+    plain = run_batch(cfg(None))
+    hooked = run_batch(cfg(keep))
+    assert hooked["danger_counts"] == plain["danger_counts"]
+    assert [len(c) for c in hooked["danger_counts"]] == [8, 5, 7]
+    pts = torch.from_numpy(measurement_grid(*clips[0].shape[1:], PARAMS.grid_step)).to(cuda_device)
+    want = [lk_grid_flow_video(torch.from_numpy(c), pts, PARAMS, device=cuda_device) for c in clips]
+    assert [(s, p) for s, p, _ in calls] == [(s, k) for k in range(1, 9) for s in range(3) if k <= (8, 5, 7)[s]]
+    for stream, pair, got in calls:
+        for name in GridFlowResult._fields:
+            assert np.array_equal(getattr(got, name), getattr(want[stream], name)[pair - 1].cpu().numpy()), (
+                stream, pair, name)
+
+
 def _leaves(tree):
     return [x for x in torch.utils._pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
 

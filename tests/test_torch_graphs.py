@@ -207,17 +207,19 @@ def test_track_step_prepared_equals_eager_step(frame_idx):
 
 
 def test_batch_step_equals_eager():
-    """The batch runner's step: each stream's `good` count and the frames'
-    image levels, as prepare_frame and lk_grid_flow_prepared on the whole
-    pyramids give them."""
+    """The batch runner's step: each stream's result packed (its `good`
+    count among them) and the frames' image levels, as prepare_frame and
+    lk_grid_flow_prepared on the whole pyramids give them."""
     fn, args = batch_step("cpu")
-    counts, cur = fn(*args)
+    packed, cur = fn(*args)
     cur_frames, pts = args[1:3]
     prev = tlk.prepare_frame(torch.from_numpy(np.stack([frames(2, seed=s)[0] for s in (0, 1)])), SPARSE)
     want_prep = tlk.prepare_frame(cur_frames, SPARSE)
     want = tgrid.lk_grid_flow_prepared(prev, want_prep, pts, SPARSE)
-    assert torch.equal(counts, want.good.sum(-1, dtype=torch.int32))
-    assert counts.shape == (2,) and int(counts.min()) > 0
+    assert torch.equal(packed, tgrid.pack_grid_result(want))
+    good = tgrid.unpack_grid_result(packed.numpy(), np.trunc(pts.numpy() + 0.5).astype(np.int32)).good
+    assert good.shape == (2, pts.shape[0]) and np.array_equal(good.sum(-1), want.good.sum(-1).numpy())
+    assert int(good.sum(-1).min()) > 0
     assert len(cur) == len(want_prep.img_p) and all(torch.equal(g, w) for g, w in zip(cur, want_prep.img_p))
 
 

@@ -108,6 +108,27 @@ def test_gray_bands_from_rows_and_cpus():
         assert tnative.gray_bands(1080) == 1
 
 
+def test_gray_bands_share_the_cpus_among_converting_threads():
+    """The CPUs less the consumer's, shared by the threads converting at
+    once; at least one band; a running prefetcher counts as one."""
+    with mock.patch.object(tnative, "_cpus", lambda: 4):
+        with tnative.converting():
+            assert tnative.gray_bands(1080) == 3
+            with tnative.converting(), tnative.converting(), tnative.converting():
+                assert tnative.gray_bands(1080) == 1
+            assert tnative.gray_bands(1080) == 3
+    with mock.patch.object(tnative, "_cpus", lambda: 8):
+        with tnative.converting(), tnative.converting():
+            assert tnative.gray_bands(1080) == 3
+    assert tnative._converters == 0
+    clip = _gray_clip(30)
+    pre, _ = _chunks(clip, 2, n_slots=2)
+    next(iter(pre))
+    assert tnative._converters == 1
+    pre.close()
+    assert tnative._converters == 0
+
+
 def test_bgr2gray_refuses_a_wrong_destination():
     bgr = _bgr(6, 8)
     for out in (np.empty((6, 9), np.uint8), np.empty((6, 8), np.int16), np.empty((6, 16), np.uint8)[:, ::2]):
@@ -245,7 +266,8 @@ def test_prefetcher_raises_reader_error():
 
 
 def _chunks(clip, chunk, n_slots=3, first=None, start=0, max_frames=None, keep_bgr=False, reader=ClipReader):
-    """A chunk-filling prefetcher over `clip` and its slots."""
+    """A chunk-filling prefetcher over `clip` and its slots (of one row
+    each with chunk 0)."""
     slots = [np.zeros((chunk + 1,) + clip.shape[1:], np.uint8) for _ in range(n_slots)]
     pre = FramePrefetcher("clip", start_frame=start, max_frames=max_frames, keep_bgr=keep_bgr,
                           open_reader=lambda path: reader(clip), slots=slots, first=first)
@@ -290,6 +312,22 @@ def test_chunk_prefetcher_resumes_from_the_saved_gray():
     assert [(p, e) for p, e, _ in got] == [(2, 6), (1, 7)]
     assert np.array_equal(got[0][2], np.stack([saved, clip[4], clip[5]]))
     assert np.array_equal(got[1][2], np.stack([clip[5], clip[6], clip[6]]))
+
+
+def test_one_row_slots_take_a_frame_each_and_carry_nothing():
+    """Slots of one row (a stream's row of a frame batch): every frame
+    from start_frame into its own slot's row 0, a Chunk of 0 pairs a frame
+    with `end` the frame after it, `first` unused; the slots come round in
+    the order they are released."""
+    clip = _gray_clip(7)
+    pre, slots = _chunks(clip, 0, first=np.full(clip.shape[1:], 200, np.uint8), start=2)
+    got = []
+    for c in pre:
+        got.append((c.slot, c.pairs, c.end, slots[c.slot][0].copy()))
+        pre.release(c.slot)
+    pre.close()
+    assert [(slot, p, e) for slot, p, e, _ in got] == [(0, 0, 3), (1, 0, 4), (2, 0, 5), (0, 0, 6), (1, 0, 7)]
+    assert all(np.array_equal(rows, clip[e - 1]) for _, _, e, rows in got)
 
 
 def test_chunk_prefetcher_one_frame_makes_no_chunk():

@@ -22,7 +22,9 @@ One world of 4 gloo ranks on the CPU runs the port side
   equal on every rank to the n_devices=1 run: a full run of streams of 9
   and 7 frames, a checkpointed run cut by max_frames and its resume, and
   resumes after one rank's stream ended before the other's was cut (at a
-  checkpoint step and between two) and after both ended;
+  checkpoint step and between two) and after both ended; with the hook
+  set on the ranks and not on the one device, and the hook called on the
+  rank that runs each stream, once a pair;
 - dryrun_multichip(4, device="cpu") in a world of its own.
 """
 
@@ -179,6 +181,13 @@ def test_run_batch_on_two_ranks_equals_one_device(world, tmp, scenario):
         for g, e in zip(got, want):
             assert g["devices"] == 2 and e["devices"] == 1
             assert {k: v for k, v in g.items() if k not in timing} == {k: v for k, v in e.items() if k not in timing}
+    # rank r < 2 runs stream r: its hook calls are that stream's pairs in
+    # order, each the pair's count, a resumed run's numbered on from its
+    # checkpoint's pair; the idle ranks are called for nothing
+    for r, w in enumerate(world):
+        want_calls = [] if r >= 2 else [(j, r, k, c) for j, e in enumerate(want)
+                                         for k, c in enumerate(e["danger_counts"][r], max(e["first_step"], 1))]
+        assert w["calls"][i] == want_calls, r
     if scenario == "resume":
         part1, part2 = want
         assert part1["steps"] == 3 and part2["first_step"] == 3

@@ -2,8 +2,9 @@
 loops leave, on the CPU: nothing is recorded without a profiler; under
 one, spans from any thread are kept and device_trace writes them into its
 Chrome trace on the trace's clock; `run`, `run_batched` and
-`farneback_flow_video` leave one set of spans a frame or chunk, and
-`track_video` one a step around its preparation spans."""
+`farneback_flow_video` leave one set of spans a frame or chunk,
+`track_video` one a step around its preparation spans, and `run_batch`
+one a step keyed by the step's index."""
 
 import json
 import os
@@ -17,6 +18,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import ClipReader
+from hackathonopticalflow_tpu_torch.apps.batch_runner import BatchRunnerConfig, run_batch
 from hackathonopticalflow_tpu_torch.apps.pathfinder import PathfinderApp, PathfinderConfig
 from hackathonopticalflow_tpu_torch.core import FeatureParams, LKParams, TrackerParams
 from hackathonopticalflow_tpu_torch.flow.dense import farneback_flow_video
@@ -158,6 +160,42 @@ def test_run_batched_leaves_chunk_and_prefetch_spans():
     # 4 and 5 end chunks 0, 1 and 2
     for chunk, last in enumerate((2, 4, 5)):
         assert at["prefetch.gray", last].end_ns <= at["prefetch.get", chunk].end_ns
+
+
+def test_run_batch_leaves_one_set_of_step_spans_a_step():
+    """Two streams of 4 and 3 frames with the hook set: three steps, the
+    second stream masked in the third. The fill, dispatch and unpack of
+    step k are keyed k; the last fill (key 4) finds both streams ended and
+    dispatches nothing; no event to wait on on the CPU; a step is unpacked
+    one step late, after the next one's dispatch, and the hook is called
+    inside its unpack."""
+    clear_spans()
+    clips = [_clip(4), _clip(3)]
+    calls = []
+
+    def hook(stream, pair, res):
+        calls.append((stream, pair, time.perf_counter_ns()))
+
+    cfg = BatchRunnerConfig(videos=["0", "1"], lk=LKParams(grid_step=30, compute_err=False), device="cpu",
+                            open_reader=lambda v: ClipReader(clips[int(v)]), on_result=hook)
+    with _cpu_profile():
+        stats = run_batch(cfg)
+    got = spans()
+    assert stats["steps"] == 3 and [(s, k) for s, k, _ in calls] == [(0, 1), (1, 1), (0, 2), (1, 2), (0, 3)]
+    for name in ("batch.step.dispatch", "batch.step.unpack"):
+        assert _keys(got, name) == [1, 2, 3], name
+    assert _keys(got, "batch.step.fill") == [1, 2, 3, 4]
+    names = {s.name for s in got}
+    assert "batch.step.wait" not in names and names >= {"prefetch.read", "prefetch.gray", "prefetch.get"}
+    main = threading.get_native_id()
+    assert all(s.thread == main for s in got if s.name.startswith("batch.step."))
+    at = {(s.name, s.key): s for s in got if s.name.startswith("batch.step.")}
+    for k in (1, 2, 3):
+        assert at["batch.step.fill", k].end_ns <= at["batch.step.dispatch", k].start_ns
+        after = at["batch.step.dispatch", k + 1] if k < 3 else at["batch.step.fill", 4]
+        assert after.end_ns <= at["batch.step.unpack", k].start_ns
+        unpack = at["batch.step.unpack", k]
+        assert all(unpack.start_ns <= t <= unpack.end_ns for _, pair, t in calls if pair == k)
 
 
 def test_farneback_flow_video_leaves_its_preparation_spans():

@@ -83,7 +83,8 @@ def ba_batch_checks(dev: torch.device, inp: dict) -> dict:
     quarter of the keyframes a rank), in the state's dtype. Then, for each
     (streams, runs) of inp["batch"], run_batch over the in-memory streams
     (name -> (T, H, W) uint8) with each of the runs' BatchRunnerConfig
-    fields in order (a checkpointed run, then its resume)."""
+    fields in order (a checkpointed run, then its resume), the hook set:
+    "calls" holds this rank's calls of each scenario."""
     _no_jax()
     axes = {"dist": ("tile", par.distributed_bundle_adjust, par.shard_landmarks),
             "ring": ("win", par.ring_bundle_adjust, par.shard_keyframes)}
@@ -94,18 +95,30 @@ def ba_batch_checks(dev: torch.device, inp: dict) -> dict:
         mesh = meshes[name]
         st, stats = fn(shard(BAState(*map(torch.from_numpy, arrs)), mesh, axis), mesh, axis, iters=iters)
         out["ba"].append((st.rvecs, st.tvecs, st.points, stats))
-    out["batch"] = [batch_runs(dev, streams, runs) for streams, runs in inp["batch"]]
+    out["batch"], out["calls"] = [], []
+    for streams, runs in inp["batch"]:
+        calls = []
+        out["batch"].append(batch_runs(dev, streams, runs, calls))
+        out["calls"].append(calls)
     return out
 
 
-def batch_runs(dev: torch.device | str, streams: dict, runs: list[dict]) -> list[dict]:
+def batch_runs(dev: torch.device | str, streams: dict, runs: list[dict], calls: list | None = None) -> list[dict]:
     """run_batch over the in-memory `streams` with each of `runs`'
-    BatchRunnerConfig fields, in order, on `dev`."""
+    BatchRunnerConfig fields, in order, on `dev`. With `calls`, the hook
+    is set and appends (run, stream, pair, the result's `good` sum) to
+    it."""
     from chip_smoke import ClipReader
 
-    return [run_batch(BatchRunnerConfig(videos=list(streams), device=str(dev),
-                                        open_reader=lambda path: ClipReader(streams[path]), **kw))
-            for kw in runs]
+    out = []
+    for j, kw in enumerate(runs):
+        hook = None
+        if calls is not None:
+            def hook(stream, pair, res, j=j):
+                calls.append((j, stream, pair, int(res.good.sum())))
+        out.append(run_batch(BatchRunnerConfig(videos=list(streams), device=str(dev), on_result=hook,
+                                               open_reader=lambda path: ClipReader(streams[path]), **kw)))
+    return out
 
 
 def cuda_checks(dev: torch.device, inp: dict) -> dict:
